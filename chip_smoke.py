@@ -1,21 +1,36 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. the device, the kernel build (from tpu_unet_torch/csrc, on first use)
-     and the card's name and power limit;
-  2. the fused 3x3 conv + bias + ReLU kernel against its plain PyTorch
+  1. the device, the kernel build (every source of tpu_unet_torch/csrc, on
+     first use) and the card's name and power limit;
+  2. K1, the fused 3x3 conv + bias + ReLU kernel, against its plain PyTorch
      version at every conv shape of a 572x572 U-Net tile (bf16), at ragged
      shapes, and in f32 with TF32 off;
-  3. the full-width bf16 U-Net (conv_impl='pallas', random weights from
-     seed 0) served through evaluate() on a synthetic set: the kernel's
-     launch count, finite metrics, and its logits against the same weights
-     under conv_impl='xla' (cuDNN);
-  4. times, with CUDA events after a warm-up: evaluate_batch under 'pallas'
-     and 'xla', and each conv shape under the kernel, the plain version and
-     cuDNN in bf16.
-The line before the last is a JSON summary of the kernel; the last line is
+  3. serving: the full-width bf16 U-Net (conv_impl='pallas', random weights
+     from seed 0) through evaluate() on a synthetic set: K1's launch count,
+     finite metrics, and its logits against the same weights under
+     conv_impl='xla' (cuDNN);
+  4. serving times, with CUDA events after a warm-up: evaluate_batch under
+     'pallas' and 'xla', and each conv shape under the kernel, the plain
+     version and cuDNN in bf16;
+  5. K2, the EDT column pass kernel, against its plain version, bit for bit
+     (tolerance 0, +inf positions equal): the DIC-HeLa weight-map shape
+     [2, 32, 388, 388] with num_valid [5, 0], ragged shapes and an
+     all-+inf plane, banded (40) and exact;
+  6. K1's gradient (its autograd.Function: kernel forward, library-conv
+     backward) against autograd through the plain version, at the 18 conv
+     shapes (bf16) and at small shapes in f32 with TF32 off;
+  7. training: Trainer.fit on DIC-HeLa at full width (bf16, batch 2,
+     distance weight maps) for one epoch of 5 steps, with K1 and K2 launch
+     counts, the progress files, the 'latest' checkpoint and a resume from
+     it; then one f32 step (TF32 off) under 'pallas' and 'xla' from the
+     same weights and batch, whose losses and momentum buffers agree;
+  8. training times, with CUDA events: a train step under 'pallas' and
+     'xla' (bf16) split into augmentation, weight maps, forward+backward and
+     optimizer, and K2 against its plain version.
+The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -26,6 +41,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import time
 
@@ -275,6 +291,346 @@ def phase4_time(cfg, model, xla, data, labels):
     return total, tiles_s
 
 
+# K2: every value is an integer below 2^24 or +inf, so kernel and plain
+# version must agree bit for bit.
+EDT_BAND = 40
+EDT_SHAPES = [  # (g2 shape, num_valid)
+    ((2, 32, 388, 388), [5, 0]),   # the DIC-HeLa weight-map batch
+    ((3, 70, 45), None),           # H, W not multiples of the 64x32 tile
+    ((2, 30, 100), None),          # H < band
+    ((1, 4, 1, 37), [2]),          # one-row planes
+    ((1, 5, 300, 97), [5]),
+]
+# Phase 7's one-step comparison, f32 with TF32 off, 'pallas' vs 'xla': the
+# kernel and cuDNN sum the forward in other orders (~1e-6 relative), so a
+# few of the ~10^8 ReLU masks flip where a pre-activation is ~0, and each
+# flip moves a whole gradient column by one pixel's term. So the momentum
+# buffers (the gradients) are held in norm, ||pallas - xla|| <= 1e-2 ||xla||
+# per tensor (a wrong gradient is off by O(1)), and the losses at rtol 1e-4.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 1e-2
+
+
+def _g2(shape, gen):
+    """Squared row distances of sparse random masks: integers and +inf."""
+    from tpu_unet_torch.ops.edt import _row_distance, _squared
+
+    masks = torch.rand(shape, generator=gen, device=DEVICE) < 0.02
+    return _squared(_row_distance(masks)).contiguous()
+
+
+def phase5_edt() -> float:
+    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for shape, nv in EDT_SHAPES:
+        g2 = _g2(shape, gen)
+        g2.view(-1, *shape[-2:])[0] = float("inf")          # an all-+inf plane
+        num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
+        for band in (EDT_BAND, None):
+            got = column_pass(g2, num_valid=num, band=band)
+            ref = column_pass_plain(g2, num_valid=num, band=band)
+            torch.cuda.synchronize()
+            same_inf = torch.equal(torch.isinf(got), torch.isinf(ref))
+            fin = torch.isfinite(ref)
+            err = (got[fin] - ref[fin]).abs().max().item() if fin.any() else 0.0
+            log(f"phase 5: K2 g2{list(shape)} num_valid {nv} band {band}: max|err| "
+                f"{err}, +inf positions equal: {same_inf}, finite share "
+                f"{fin.float().mean().item():.4f}")
+            if not (same_inf and err == 0.0 and torch.equal(got, ref)):
+                raise AssertionError(f"K2 differs from its plain version at {shape}, band {band}")
+    log("phase 5: ok, K2 bit-exact at every shape")
+    return 0.0
+
+
+def _int_inputs(shape, cout, dtype, gen):
+    """Small integers, and biases of one half: every pre-activation is at
+    least 0.5 from 0 and every sum is exact in f32. With normal inputs about
+    1e-5 of the pre-activations lie within rounding distance of 0, where the
+    two forwards' ReLU masks may disagree, and one such pixel moves a dw
+    entry by |g x|: 2% of dw's scale at the bottleneck's 1800 pixels."""
+    cin = shape[-1]
+
+    def ints(size, lo, hi):
+        return torch.randint(lo, hi, size, generator=gen, device=DEVICE).to(dtype)
+
+    b = torch.full((cout,), 0.5, device=DEVICE).to(dtype)
+    g = ints((shape[0], shape[1] - 2, shape[2] - 2, cout), -3, 4)
+    return ints(shape, -3, 4), ints((3, 3, cin, cout), -2, 3), b, g
+
+
+def _grad_compare(shape, cout, dtype, gen) -> float:
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    if dtype == torch.bfloat16:
+        x, w, b, g = _int_inputs(shape, cout, dtype, gen)
+    else:
+        x, w, b = _conv_inputs(shape, cout, dtype, gen)
+        g = torch.randn((shape[0], shape[1] - 2, shape[2] - 2, cout), generator=gen,
+                        device=DEVICE)
+    grads = []
+    for fn in (conv3x3_bias_relu, conv3x3_bias_relu_plain):
+        xs, ws, bs = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        fn(xs, ws, bs).backward(g)
+        grads.append([t.grad.float() for t in (xs, ws, bs)])
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, got, ref in zip(("dx", "dw", "db"), *grads):
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if dtype == torch.bfloat16:
+            if not err <= BF16_TOL * scale:
+                raise AssertionError(f"bf16 {shape}->{cout} {name}: max|err| {err} > "
+                                     f"{BF16_TOL} x {scale}")
+        else:
+            torch.testing.assert_close(got, ref, rtol=F32_RTOL, atol=F32_RTOL * scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase6_conv_grad(cfg) -> float:
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    shapes, _ = conv_shapes(cfg, TILE_IN)
+    worst = 0.0
+    for name, s, cin, cout in shapes:
+        rows = min(s, 34)
+        rel = _grad_compare((2, rows, s, cin), cout, torch.bfloat16, gen)
+        worst = max(worst, rel)
+        log(f"phase 6: {name:17s} x[2,{rows},{s},{cin}] -> {cout}: bf16 dx/dw/db "
+            f"max|err| {rel:.3g} of scale")
+    for shape, cout in [((2, 13, 16, 4), 8), ((1, 18, 20, 8), 16), ((2, 20, 70, 64), 128)]:
+        rel = _grad_compare(shape, cout, torch.float32, gen)
+        log(f"phase 6: f32 x{list(shape)} -> {cout}: dx/dw/db max|err| {rel:.3g} of scale")
+    log(f"phase 6: ok, bf16 within {BF16_TOL} of each gradient's scale, f32 rtol "
+        f"{F32_RTOL} (TF32 off)")
+    return worst
+
+
+def _train_data():
+    from tpu_unet_torch.data import synthetic_dataset
+
+    # the JAX CLI's --synthetic fixture for the DIC-HeLa preset
+    return synthetic_dataset(n_images=10, h=448, w=448, n_cells=5, crop=TILE_OUT, seed=0)
+
+
+def phase7_train(cfg):
+    from tpu_unet.config import DATASETS, TrainConfig
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
+    from tpu_unet_torch.ops.edt_pallas import column_pass
+    from tpu_unet_torch.train import Trainer
+    from tpu_unet_torch.train.progress import FILES
+
+    data = _train_data()
+    out = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(out, ignore_errors=True)
+    ds = DATASETS["DIC-C2DH-HeLa"]
+    tcfg = TrainConfig(batch_size=2, checkpoint_every=1)
+    trainer = Trainer(ds, cfg, tcfg, out_dir=out)
+    n_val = -(-len(data) // tcfg.batch_size)
+    n_steps = len(data) // tcfg.batch_size
+    conv3x3_bias_relu.launches = column_pass.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.fit(data, data, epochs=0)
+    torch.cuda.synchronize()
+    launches = {"conv3x3_bias_relu": conv3x3_bias_relu.launches,
+                "edt_column_pass": column_pass.launches}
+    log(f"phase 7: Trainer.fit(epochs=0) on {len(data)} images of 448^2: {n_steps} "
+        f"train steps, {n_val} val batches in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}; history {json.dumps(history)}")
+    if launches["conv3x3_bias_relu"] != 18 * (n_steps + n_val):
+        raise AssertionError(f"K1 launches {launches}, want 18 x ({n_steps} + {n_val})")
+    if launches["edt_column_pass"] < n_steps:
+        raise AssertionError(f"K2 launches {launches}, want >= {n_steps}")
+    if not all(np.isfinite(v) for vals in history.values() for v in vals):
+        raise AssertionError(f"non-finite history {history}")
+    missing = [f for f in list(FILES.values()) + ["metrics.jsonl"]
+               if not os.path.exists(os.path.join(out, "progress", f))]
+    if missing or not os.path.isdir(os.path.join(out, "models", "latest")):
+        raise AssertionError(f"missing progress files {missing} or models/latest")
+    resumed = Trainer(ds, cfg, tcfg, out_dir=out).fit(data, data, epochs=1, resume=True)
+    if len(resumed["loss"]) != 2 or resumed["loss"][0] != history["loss"][0]:
+        raise AssertionError(f"resume did not continue at epoch 1: {resumed}")
+    log(f"phase 7: resumed from 'latest' and trained epoch 1: loss "
+        f"{resumed['loss']}")
+    shutil.rmtree(out, ignore_errors=True)
+    del trainer
+    return launches
+
+
+def _batch(pipe, data, seed):
+    arrays = [torch.from_numpy(a).to(DEVICE) for a in (
+        data.images, data.targets, data.crop_log_probs, data.crop_pairs)]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return pipe(*arrays, np.array([0, 1]), gen)
+
+
+def phase7_step_agreement(cfg):
+    """One f32 step from the same weights and batch: 'pallas' vs 'xla'."""
+    from tpu_unet.config import DATASETS, OptimConfig
+    from tpu_unet_torch.data.augment import AugmentPipeline
+    from tpu_unet_torch.losses.weights import make_weight_fn
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.train import make_optimizer
+    from tpu_unet_torch.train.trainer import make_train_step
+
+    ds = DATASETS["DIC-C2DH-HeLa"]
+    inp, gt = _batch(AugmentPipeline(ds.augment()), _train_data(), 7)
+    weight_fn = make_weight_fn("distance")
+    results = {}
+    for impl in ("pallas", "xla"):
+        # one seed: the same weights under either conv_impl
+        c = dataclasses.replace(cfg, compute_dtype="float32", conv_impl=impl)
+        model = UNet(c, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        opt = make_optimizer(model.parameters(), OptimConfig())
+        loss, _ = make_train_step(model, weight_fn, "intended", opt)(inp, gt)
+        results[impl] = (loss.item(), {n: opt.state[p]["momentum_buffer"]
+                                       for n, p in model.named_parameters()})
+    (lp, bp), (lx, bx) = results["pallas"], results["xla"]
+    worst = max(((bp[n] - bx[n]).norm() / bx[n].norm().clamp_min(1e-30)).item()
+                for n in bx)
+    worst_max = max((bp[n] - bx[n]).abs().max().item() / max(bx[n].abs().max().item(), 1e-30)
+                    for n in bx)
+    log(f"phase 7: one f32 step, 'pallas' loss {lp!r} vs 'xla' {lx!r}; momentum "
+        f"buffers: relative L2 error {worst:.3g} in the worst tensor, max|err| "
+        f"{worst_max:.3g} of its scale")
+    if not (abs(lp - lx) <= STEP_LOSS_RTOL * abs(lx) and worst <= STEP_GRAD_TOL):
+        raise AssertionError("'pallas' and 'xla' train steps disagree")
+    log("phase 7: ok")
+    return worst
+
+
+def _events():
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+# Kernel-name fragments -> the rows of the train-step breakdown.
+KERNEL_GROUPS = (
+    ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu",)),
+    ("K2 edt_column_pass", ("edt_column_pass",)),
+    ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "cutlass", "cudnn",
+                                    "dgrad", "wgrad", "winograd", "sm90")),
+    ("gather, scatter, index", ("index", "gather", "scatter")),
+    ("scans and reductions", ("reduce", "scan", "cummax", "cummin", "arg", "sum",
+                              "norm", "max", "min")),
+)
+
+
+def _profile(step, n: int):
+    """Device time by kernel over `n` calls of `step` under torch.profiler:
+    (window ms on the host clock, busy ms, {group: ms}, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r in range(n):
+            step(r)
+        torch.cuda.synchronize()
+    window = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total", 0) / 1e3
+        if ms > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + ms
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["elementwise and copies"], 0.0)
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)),
+                     "elementwise and copies")
+        groups[group] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return window, sum(kernels.values()), groups, top
+
+
+def phase8_time(cfg):
+    from tpu_unet.config import DATASETS, OptimConfig
+    from tpu_unet_torch.data.augment import AugmentPipeline
+    from tpu_unet_torch.losses.bce import weighted_bce_with_logits
+    from tpu_unet_torch.losses.weights import make_weight_fn
+    from tpu_unet_torch.models import UNet, center_crop_or_pad
+    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+    from tpu_unet_torch.train import make_optimizer
+
+    ds = DATASETS["DIC-C2DH-HeLa"]
+    pipe = AugmentPipeline(ds.augment())
+    data = _train_data()
+    arrays = [torch.from_numpy(a).to(DEVICE) for a in (
+        data.images, data.targets, data.crop_log_probs, data.crop_pairs)]
+    weight_fn = make_weight_fn("distance")
+    models = {}
+    for impl in ("pallas", "xla"):
+        m = UNet(dataclasses.replace(cfg, conv_impl=impl),
+                 generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        models[impl] = (m, make_optimizer(m.parameters(), OptimConfig()))
+    parts = ("augment", "weights", "fwd_bwd", "optimizer")
+
+    def train_step(impl, r, ev=None):
+        """One step of the train loop, as `make_train_step` runs it, with
+        CUDA events around its four parts when `ev` is given."""
+        model, opt = models[impl]
+        mark = (lambda k, i: ev[k][i].record()) if ev else (lambda k, i: None)
+        gen = torch.Generator(device=DEVICE).manual_seed(100 + r)
+        mark("augment", 0)
+        inp, gt = pipe(*arrays, np.array([2 * r, 2 * r + 1]) % len(data), gen)
+        mark("augment", 1)
+        mark("weights", 0)
+        with torch.no_grad():
+            w = weight_fn(gt)
+        mark("weights", 1)
+        mark("fwd_bwd", 0)
+        opt.zero_grad(set_to_none=True)
+        logits = center_crop_or_pad(model(inp), gt.shape[1:3])
+        weighted_bce_with_logits(logits, gt, w).backward()
+        mark("fwd_bwd", 1)
+        mark("optimizer", 0)
+        opt.step()
+        mark("optimizer", 1)
+
+    steps = {}
+    reps = 6
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        ev = {k: _events() for k in parts}
+        acc = dict.fromkeys(parts, 0.0)
+        for r in range(reps + 1):             # the first is a warm-up
+            train_step(impl, r, ev)
+            torch.cuda.synchronize()
+            if r:
+                for k in parts:
+                    acc[k] += ev[k][0].elapsed_time(ev[k][1]) / reps
+        steps.setdefault(impl, []).append(acc)
+    step_ms = {}
+    for impl, runs in steps.items():
+        mean = {k: sum(r[k] for r in runs) / len(runs) for k in parts}
+        step_ms[impl] = {**mean, "step": sum(mean.values())}
+        log(f"phase 8: train step conv_impl={impl!r} (bf16, batch 2, 572^2): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms[impl].items())
+            + f" (runs {[round(sum(r.values()), 3) for r in runs]})")
+    for impl in ("pallas", "xla"):
+        n = 3
+        window, busy, groups, top = _profile(lambda r: train_step(impl, r), n)
+        step_ms[impl]["profiled_idle_share"] = 1.0 - busy / window
+        log(f"phase 8: profile of {n} steps conv_impl={impl!r}: window {window / n:.3f} "
+            f"ms/step, device busy {busy / n:.3f} ms/step, idle share "
+            f"{1.0 - busy / window:.4f}; by group (ms/step): "
+            + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items()))
+        for name, ms in top:
+            log(f"phase 8:   {ms / n:9.3f} ms/step  {name[:110]}")
+    del models
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    g2 = _g2((2, 32, TILE_OUT, TILE_OUT), gen)
+    edt_ms = {}
+    for label, nv in (("num_valid [5, 0]", [5, 0]), ("all 64 planes live", None)):
+        num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
+        for band in (EDT_BAND, None):
+            t = {"kernel": _time_ms(lambda: column_pass(g2, num, band), 20),
+                 "plain": _time_ms(lambda: column_pass_plain(g2, num, band), 3)}
+            edt_ms[f"{label}, band {band}"] = t
+            log(f"phase 8: K2 g2[2,32,{TILE_OUT},{TILE_OUT}] {label}, band {band}: "
+                f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms")
+    return step_ms, edt_ms
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -284,20 +640,42 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ModelConfig(base_width=64, compute_dtype="bfloat16", conv_impl="pallas")
     max_err = phase2_kernel_vs_plain(cfg)
-    model, xla, data, labels, launches = phase3_serve(cfg)
+    model, xla, data, labels, serve_launches = phase3_serve(cfg)
     total, tiles_s = phase4_time(cfg, model, xla, data, labels)
+    del model, xla
+    edt_err = phase5_edt()
+    grad_err = phase6_conv_grad(cfg)
+    launches = phase7_train(cfg)
+    step_err = phase7_step_agreement(cfg)
+    step_ms, edt_ms = phase8_time(cfg)
+    band_key = f"num_valid [5, 0], band {EDT_BAND}"
     log(json.dumps({"kernels": [{
         "name": "conv3x3_bias_relu",
         "route": "cuda",
+        "backward_route": "library",
         "source": "tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
         "replaces": "tpu_unet/ops/conv_pallas.py:57",
-        "launches": launches,
+        "launches": launches["conv3x3_bias_relu"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": launches["conv3x3_bias_relu"]},
         "max_abs_err": max_err,
+        "grad_max_rel_err": grad_err,
         "ms": total["kernel"],
         "plain_ms": total["plain"],
         "cudnn_bf16_ms": total["cudnn"],
         "evaluate_tiles_per_s": tiles_s,
-    }]}))
+    }, {
+        "name": "edt_column_pass",
+        "route": "cuda",
+        "source": "tpu_unet_torch/csrc/edt_column_pass.cu",
+        "replaces": "tpu_unet/ops/edt_pallas.py:102",
+        "launches": launches["edt_column_pass"],
+        "launches_by_path": {"train": launches["edt_column_pass"]},
+        "max_abs_err": edt_err,
+        "ms": edt_ms[band_key]["kernel"],
+        "plain_ms": edt_ms[band_key]["plain"],
+        "ms_by_case": edt_ms,
+    }], "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

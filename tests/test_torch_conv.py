@@ -101,7 +101,8 @@ def test_wrapper_rejects_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = _build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["conv3x3_bias_relu.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["conv3x3_bias_relu.cu",
+                                                   "edt_column_pass.cu"]
     path = _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert _build.BUILD_DIR.endswith(os.path.join("build", "tpu_unet_torch"))
@@ -109,7 +110,7 @@ def test_build_names_library_by_source_hash():
     cmd = _build.nvcc_command("nvcc", "out.so")
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert cmd[-1] == srcs[0]
+    assert cmd[-len(srcs):] == srcs          # one nvcc call builds every kernel
 
 
 

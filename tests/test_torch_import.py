@@ -1,5 +1,6 @@
-"""The port imports no JAX: a fresh interpreter imports tpu_unet_torch, runs
-a tiny evaluate(), and finds no `jax` module loaded."""
+"""The port imports no JAX: a fresh interpreter imports every module of
+tpu_unet_torch, runs a tiny evaluate() and a tiny Trainer.fit(), and finds
+no `jax` or `triton` module loaded and no kernel library built."""
 
 import ast
 import os
@@ -10,19 +11,34 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = """
-import sys
+import importlib, os, pkgutil, sys, tempfile
 import tpu_unet_torch
-from tpu_unet.config import ModelConfig
+from tpu_unet_torch.ops import _build
+
+for mod in pkgutil.walk_packages(tpu_unet_torch.__path__, "tpu_unet_torch."):
+    importlib.import_module(mod.name)
+assert _build._lib is None, "a kernel library was loaded at import"
+
+from tpu_unet.config import DatasetConfig, ModelConfig, TrainConfig
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.infer import evaluate
 from tpu_unet_torch.models import UNet
+from tpu_unet_torch.train import Trainer
 
 model = UNet(ModelConfig(base_width=2, conv_impl="pallas"))
 data = synthetic_dataset(n_images=2, h=48, w=48, n_cells=2, crop=20, seed=1)
 result = evaluate(model, data, tile_out=36, verbose=False)
 assert result["num_images"] == 2, result
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+ds = DatasetConfig(name="s", crop=20, metric="iou", weight_mode="distance",
+                   goal=1.0, goal_direction="max")
+history = Trainer(ds, ModelConfig(base_width=2, conv_impl="pallas"),
+                  TrainConfig(batch_size=2), out_dir=tempfile.mkdtemp(),
+                  verbose=False, device="cpu").fit(data, data, epochs=0)
+assert len(history["loss"]) == 1, history
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "optax", "triton"))
 assert not loaded, loaded
+assert _build._lib is None and not os.path.exists(_build.library_path())
 print("OK")
 """
 

@@ -165,7 +165,7 @@ def test_rejects_invalid_input_size():
 
 @pytest.mark.parametrize("field,value,item", [
     ("phase_level0", True, "item 8"),
-    ("remat", True, "item 6"),
+    ("conv_bwd", "auto", "item 13"),
     ("conv_bwd", "mm", "item 13"),
 ])
 def test_unported_options_raise(field, value, item):

@@ -2,12 +2,16 @@
 H100. It imports no JAX; the JAX package `tpu_unet` is its reference.
 
 Layering (mirrors tpu_unet):
-  csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a)
-  ops/       the kernels' wrappers and plain versions, their build, padding
+  csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a): K1 the
+             fused 3x3 conv + bias + ReLU, K2 the EDT column pass
+  ops/       the kernels' wrappers, plain versions and K1's gradient, their
+             build; EDT, connected components, warps, padding
   models/    the U-Net as an nn.Module, with the JAX package's layer names
-  data/      host ingest for serving, synthetic fixture datasets
-  losses/    IoU / pixel error
+  data/      host ingest, synthetic fixture datasets, augmentation
+  losses/    weighted BCE, weight maps, IoU / pixel error
   infer/     overlap-tile inference engine, evaluation entry point, export
+  train/     trainer, optimizer and plateau scheduler, checkpoints,
+             progress curves, folds
   convert    JAX params and reference .pth files -> the port's state_dict
 
 Shared with tpu_unet (they import no JAX): config.ModelConfig,

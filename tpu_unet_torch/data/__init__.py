@@ -5,3 +5,4 @@ from tpu_unet_torch.data.ingest import (
     square_crop,
 )
 from tpu_unet_torch.data.synthetic import synthetic_dataset
+from tpu_unet_torch.data.augment import AugmentPipeline

@@ -10,7 +10,10 @@ through `tpu_unet_torch.convert.state_dict_from_jax_params`, and a reference
 
 ``conv_impl='pallas'`` runs the 3x3 convs through the fused conv + bias +
 ReLU kernel (`ops.conv_pallas.conv3x3_bias_relu`); ``'xla'`` through
-``F.conv2d``, with the decoder's first convs in the split-concat form.
+``F.conv2d``, with the decoder's first convs in the split-concat form. Both
+train: the kernel's gradient is its autograd.Function, the split form's is
+autograd's (the same cotangents as the JAX package's ``_scc_bwd``), and
+``remat`` checkpoints each encoder level, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_unet.config import ModelConfig
 from tpu_unet.core.geometry import output_size_for_input
@@ -190,6 +194,10 @@ class UNet(nn.Module):
         w, b = self._wb(name)
         return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=2))
 
+    def _enc_level(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        x = self._conv3_relu(f"enc{d}_conv1", x)
+        return self._conv3_relu(f"enc{d}_conv2", x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         # Reject sizes the valid-conv geometry can't carry (pooling would
@@ -205,8 +213,11 @@ class UNet(nn.Module):
         x = x.to(self.compute_dtype)
         skips = []
         for d in range(cfg.depth):
-            x = self._conv3_relu(f"enc{d}_conv1", x)
-            x = self._conv3_relu(f"enc{d}_conv2", x)
+            if cfg.remat and torch.is_grad_enabled():
+                # keep only the level's input; rerun its convs in the backward
+                x = checkpoint(self._enc_level, x, d, use_reentrant=False)
+            else:
+                x = self._enc_level(x, d)
             if cfg.skip_variant == "paper":
                 skips.append(x)
             x = _max_pool2(x)
@@ -247,6 +258,3 @@ def _check_config(cfg: ModelConfig) -> None:
     if cfg.phase_level0:
         raise NotImplementedError(
             "phase_level0 is not ported yet (ROADMAP queue 1, item 8)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP queue 1, item 6: training)")

@@ -101,6 +101,9 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
+        lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
+                                            i, p]
+        lib.edt_column_pass_f32.restype = i
         lib.tpu_unet_torch_cuda_error_string.argtypes = [i]
         lib.tpu_unet_torch_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

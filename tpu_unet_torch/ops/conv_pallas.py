@@ -8,7 +8,12 @@ package's: x NHWC ``[B, H, W, Cin]``, w HWIO ``[3, 3, Cin, Cout]``, b
 (``ops/_build.py``).
 
 `conv3x3_bias_relu` dispatches on the device of `x`: a CPU tensor goes to
-`conv3x3_bias_relu_plain`, a CUDA tensor launches the kernel or raises.
+`conv3x3_bias_relu_plain`, a CUDA tensor launches the kernel or raises. It
+is differentiable on both devices through one `torch.autograd.Function`
+whose backward is that of the JAX package's custom VJP
+(``tpu_unet/ops/conv_pallas.py:94-103``): the cotangent gated by the fused
+output's ReLU mask, then the conv transposes (library convs, cuDNN on the
+card, as JAX leaves them to XLA) for dx and dw, and a sum for db.
 """
 
 from __future__ import annotations
@@ -69,24 +74,55 @@ def _check_kernel_args(x, w, b, out_dtype) -> None:
                          f"w {tuple(w.shape)}")
     if max(x.shape) > _INT32_MAX or 9 * x.shape[3] > _INT32_MAX:
         raise ValueError(f"dimension past int32 in x {tuple(x.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
-        # No silent loss of the gradient: the kernel backward is ROADMAP
-        # item 6 (training).
-        raise RuntimeError(
-            "conv3x3_bias_relu has no backward on CUDA yet; call it under "
-            "torch.no_grad() or torch.inference_mode()")
+
+
+class _Conv3x3BiasReLU(torch.autograd.Function):
+    """The fused forward (`_forward`) with the JAX package's backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, out_dtype):
+        y = _forward(x, w, b, out_dtype)
+        ctx.save_for_backward(x, w, y)
+        ctx.b_dtype = b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        # d relu(pre) / d pre at the fused output: pre > 0 <=> y > 0; the
+        # transposes run in x's dtype (g arrives in y's)
+        g = torch.where(y > 0, g, 0).to(x.dtype).permute(0, 3, 1, 2)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(
+                (x.shape[0], x.shape[3], x.shape[1], x.shape[2]),
+                w.permute(3, 2, 0, 1), g)
+            dx = dx.permute(0, 2, 3, 1).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2), (w.shape[3], w.shape[2], 3, 3), g)
+            dw = dw.permute(2, 3, 1, 0).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 2, 3)).to(ctx.b_dtype)
+        return dx, dw, db, None
 
 
 def conv3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x [B, H, W, Cin], w [3, 3, Cin, Cout], b [Cout] ->
-    relu(conv_valid(x, w) + b) [B, H-2, W-2, Cout].
+    relu(conv_valid(x, w) + b) [B, H-2, W-2, Cout], differentiable in x, w
+    and b.
 
     On a CPU tensor: `conv3x3_bias_relu_plain`. On a CUDA tensor: the Hopper
     kernel, which takes contiguous float32 or bfloat16 tensors of one dtype,
     writes that dtype, and counts each launch in
-    ``conv3x3_bias_relu.launches``."""
+    ``conv3x3_bias_relu.launches``. The backward runs library convs on
+    either device."""
+    return _Conv3x3BiasReLU.apply(x, w, b, out_dtype)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, w, b, out_dtype)
     if x.device.type != "cuda":
