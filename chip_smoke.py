@@ -29,7 +29,20 @@ Phases, each printing its own lines:
      same weights and batch, whose losses and momentum buffers agree;
   8. training times, with CUDA events: a train step under 'pallas' and
      'xla' (bf16) split into augmentation, weight maps, forward+backward and
-     optimizer, and K2 against its plain version.
+     optimizer, and K2 against its plain version;
+  9. K3, the fused int8 conv of quantized serving, against its plain
+     version, bit for bit (tolerance 0), and against the int8 library route
+     (im2col + torch._int_mm): the 14 int8 conv shapes of a 572x572 tile
+     (batch 2), ragged and misaligned shapes, both out kinds; bf16 inputs at
+     BF16_TOL;
+ 10. int8 serving: the full-width bf16 U-Net (conv_impl='pallas', seed 0)
+     through evaluate(quant='int8', quant_path=...): calibration, the .npz,
+     14 K3 launches per chunk, finite metrics, a second evaluate served from
+     the .npz with equal metrics, and every stage of QuantInference under
+     'pallas' (K3) equal to 'xla' (the library route);
+ 11. int8 serving times: evaluate_batch under int8 'pallas' and 'xla' and
+     float 'pallas' and 'xla', and each int8 conv shape of one 16-tile chunk
+     under K3, the library route and the plain version.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
@@ -53,6 +66,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 TILE_IN, TILE_OUT = 572, 388
 BATCH_TILES = 16
+# the serving set: 4 synthetic IMAGE x IMAGE frames, 4 tiles each
+IMAGE = 512
 # bf16: kernel and plain version read the same bf16 inputs and both sum in
 # f32, so they differ by summation order and the final bf16 rounding (one
 # bf16 ulp is 2^-8 of a value): held at 2e-2 of the output's scale, the bar
@@ -66,6 +81,37 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-5
 # scale. The class maps must then agree wherever the 'xla' top-2 margin
 # exceeds twice the largest logit difference, which no rounding can flip.
 MODEL_TOL = 5e-2
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): a call's
+# bound is the larger of its bytes (each input read once, each output
+# written once) over the memory rate and its operations over the peak rate
+# of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms the card could take, 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_cost(batch: int, s: int, cin: int, cout: int, in_bytes: int, out_bytes: int,
+              vec_bytes: int):
+    """(bytes, operations) of one 3x3 valid conv + per-channel epilogue of
+    x [batch, s, s, cin] -> [batch, s-2, s-2, cout]; `vec_bytes` per output
+    channel for its epilogue vectors (bias, or alpha and beta)."""
+    nbytes = (batch * s * s * cin * in_bytes + 9 * cin * cout * in_bytes
+              + vec_bytes * cout + batch * (s - 2) ** 2 * cout * out_bytes)
+    return nbytes, 2 * batch * (s - 2) ** 2 * 9 * cin * cout
+
+
+def chunk_bound(shapes, kind: str, in_bytes: int, out_bytes: int, vec_bytes: int):
+    """`bound` of the convs `shapes` over one chunk of BATCH_TILES tiles,
+    their bytes and operations summed."""
+    costs = [conv_cost(BATCH_TILES, s, cin, cout, in_bytes, out_bytes, vec_bytes)
+             for _, s, cin, cout in shapes]
+    return bound(sum(c[0] for c in costs), sum(c[1] for c in costs), kind)
 
 
 def log(*args) -> None:
@@ -183,8 +229,8 @@ def phase3_serve(cfg):
     from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
 
     model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
-    data = synthetic_dataset(n_images=4, h=512, w=512, crop=TILE_OUT, seed=0)
-    engine = TileInference(model, 512, 512, tile_out=TILE_OUT)
+    data = synthetic_dataset(n_images=4, h=IMAGE, w=IMAGE, crop=TILE_OUT, seed=0)
+    engine = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT)
     n_tiles = len(data) * engine.plan.num_tiles
     n_chunks = -(-n_tiles // engine.batch_tiles)
     if engine.plan.tile_in != TILE_IN:
@@ -213,11 +259,11 @@ def phase3_serve(cfg):
 
     xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
     xla.load_state_dict(model.state_dict())
-    xengine = TileInference(xla, 512, 512, tile_out=TILE_OUT)
+    xengine = TileInference(xla, IMAGE, IMAGE, tile_out=TILE_OUT)
     lp = engine.predict_logits(data.images[0])
     lx = xengine.predict_logits(data.images[0])
     torch.cuda.synchronize()
-    if lp.shape != (512, 512, 2) or not torch.isfinite(lp).all():
+    if lp.shape != (IMAGE, IMAGE, 2) or not torch.isfinite(lp).all():
         raise AssertionError(f"pallas logits {tuple(lp.shape)} not finite or misshapen")
     scale = lx.abs().max().item()
     err = (lp - lx).abs().max().item()
@@ -253,8 +299,8 @@ def phase4_time(cfg, model, xla, data, labels):
 
     images = torch.from_numpy(data.images).to(DEVICE)
     lab = torch.from_numpy(labels).to(DEVICE)
-    engines = {"pallas": TileInference(model, 512, 512, tile_out=TILE_OUT),
-               "xla": TileInference(xla, 512, 512, tile_out=TILE_OUT)}
+    engines = {"pallas": TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT),
+               "xla": TileInference(xla, IMAGE, IMAGE, tile_out=TILE_OUT)}
     n_tiles = len(data) * engines["pallas"].plan.num_tiles
     times = {"pallas": [], "xla": []}
     for impl in ("pallas", "xla", "xla", "pallas"):
@@ -279,15 +325,19 @@ def phase4_time(cfg, model, xla, data, labels):
                 "plain": _time_ms(lambda: conv3x3_bias_relu_plain(x, w, b), 3),
                 "cudnn": _time_ms(lambda: F.relu(F.conv2d(x_nchw, w_oihw, b)), 5),
             }
-            flop = 2 * BATCH_TILES * (s - 2) ** 2 * 9 * cin * cout
             for k in total:
                 total[k] += t[k]
+            nbytes, flop = conv_cost(BATCH_TILES, s, cin, cout, 2, 2, 2)
+            b_ms, by = bound(nbytes, flop, "bf16")
             log(f"phase 4: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel "
                 f"{t['kernel']:.3f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
-                f"f32 {t['plain']:.3f} ms, cuDNN bf16 {t['cudnn']:.3f} ms")
+                f"f32 {t['plain']:.3f} ms, cuDNN bf16 {t['cudnn']:.3f} ms, bound "
+                f"{b_ms:.3f} ms ({by})")
             del x, w, b, w_oihw, x_nchw
+    total["bound"], total["bound_by"] = chunk_bound(shapes, "bf16", 2, 2, 2)
     log(f"phase 4: 18 convs of one {BATCH_TILES}-tile chunk: kernel {total['kernel']:.2f} ms, "
-        f"plain f32 {total['plain']:.2f} ms, cuDNN bf16 {total['cudnn']:.2f} ms")
+        f"plain f32 {total['plain']:.2f} ms, cuDNN bf16 {total['cudnn']:.2f} ms, bound "
+        f"{total['bound']:.3f} ms ({total['bound_by']})")
     return total, tiles_s
 
 
@@ -317,6 +367,17 @@ def _g2(shape, gen):
 
     masks = torch.rand(shape, generator=gen, device=DEVICE) < 0.02
     return _squared(_row_distance(masks)).contiguous()
+
+
+def edt_bound(shape, num_valid, band):
+    """K2's bound on g2 `shape` [B, K, H, W]: the live planes' input read
+    once and every output written once; an add and a min per candidate row
+    (|i - r| <= band) of each live output, at the f32 rate."""
+    b, k, h, w = shape
+    live = b * k if num_valid is None else sum(min(n, k) for n in num_valid)
+    rows = (h * h if band is None else
+            sum(min(i + band, h - 1) - max(i - band, 0) + 1 for i in range(h)))
+    return bound(4 * (live + b * k) * h * w, 2 * live * w * rows, "f32")
 
 
 def phase5_edt() -> float:
@@ -414,7 +475,7 @@ def _train_data():
 
 
 def phase7_train(cfg):
-    from tpu_unet.config import DATASETS, TrainConfig
+    from tpu_unet_torch.config import DATASETS, TrainConfig
     from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
     from tpu_unet_torch.ops.edt_pallas import column_pass
     from tpu_unet_torch.train import Trainer
@@ -466,7 +527,7 @@ def _batch(pipe, data, seed):
 
 def phase7_step_agreement(cfg):
     """One f32 step from the same weights and batch: 'pallas' vs 'xla'."""
-    from tpu_unet.config import DATASETS, OptimConfig
+    from tpu_unet_torch.config import DATASETS, OptimConfig
     from tpu_unet_torch.data.augment import AugmentPipeline
     from tpu_unet_torch.losses.weights import make_weight_fn
     from tpu_unet_torch.models import UNet
@@ -507,6 +568,7 @@ def _events():
 KERNEL_GROUPS = (
     ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu",)),
     ("K2 edt_column_pass", ("edt_column_pass",)),
+    ("K3 conv3x3_fused", ("conv3x3_fused",)),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "cutlass", "cudnn",
                                     "dgrad", "wgrad", "winograd", "sm90")),
     ("gather, scatter, index", ("index", "gather", "scatter")),
@@ -543,7 +605,7 @@ def _profile(step, n: int):
 
 
 def phase8_time(cfg):
-    from tpu_unet.config import DATASETS, OptimConfig
+    from tpu_unet_torch.config import DATASETS, OptimConfig
     from tpu_unet_torch.data.augment import AugmentPipeline
     from tpu_unet_torch.losses.bce import weighted_bce_with_logits
     from tpu_unet_torch.losses.weights import make_weight_fn
@@ -631,6 +693,225 @@ def phase8_time(cfg):
     return step_ms, edt_ms
 
 
+# The stages of the quantized forward that `QuantInference.apply(stop_after=)`
+# can return, in order.
+QUANT_STAGES = ([f"enc{d}_conv{i}" for d in range(4) for i in (1, 2)]
+                + [f"pool{d}" for d in range(4)]
+                + ["bottleneck_conv1", "bottleneck_conv2"]
+                + [f"up{d}" for d in range(4)]
+                + [f"dec{d}_conv{i}" for d in range(4) for i in (1, 2)])
+
+
+def int8_shapes(cfg):
+    """The conv shapes of a 572x572 tile that int8 serving runs through K3."""
+    from tpu_unet_torch.infer.quant import default_quant_names
+
+    names = default_quant_names(cfg)
+    shapes = [sh for sh in conv_shapes(cfg, TILE_IN)[0] if sh[0] in names]
+    if len(shapes) != 14:
+        raise AssertionError(f"{len(shapes)} int8 convs, want 14: {sorted(names)}")
+    return shapes
+
+
+def _k3_inputs(shape, cout, dtype, gen, offset=0):
+    """int8 x and w with f32 alpha and beta that spread the outputs over
+    [0, 127] (or bf16 x and w, alpha 1). `offset` bytes put x off its 16-byte
+    alignment, which the kernel takes on its scalar load path."""
+    cin = shape[-1]
+    if dtype == torch.int8:
+        buf = torch.randint(-127, 128, (math.prod(shape) + offset,), generator=gen,
+                            device=DEVICE, dtype=torch.int8)
+        x = buf[offset:].view(shape)
+        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        alpha = torch.rand((cout,), generator=gen, device=DEVICE) * 2e-3 / math.sqrt(cin)
+        beta = torch.randn((cout,), generator=gen, device=DEVICE) * 3
+        return x, w, alpha, beta
+    x, w, _ = _conv_inputs(shape, cout, dtype, gen)
+    return (x, w, torch.ones((cout,), device=DEVICE),
+            torch.randn((cout,), generator=gen, device=DEVICE) * 0.1)
+
+
+@torch.inference_mode()
+def phase9_k3_vs_plain(cfg):
+    from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
+                                               conv3x3_int8_xla)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    cases = [(name, (2, s, s, cin), cout, 0) for name, s, cin, cout in int8_shapes(cfg)]
+    cases += [("ragged", (2, 10, 12, 16), 8, 0), ("ragged", (1, 9, 13, 24), 40, 0),
+              ("misaligned", (2, 10, 12, 16), 8, 3), ("ragged", (1, 12, 40, 3), 5, 0),
+              ("ragged", (3, 37, 45, 136), 72, 0), ("misaligned", (2, 20, 70, 128), 256, 1)]
+    for label, shape, cout, offset in cases:
+        x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, gen, offset)
+        for out_kind in ("int8", "bf16"):
+            got = conv3x3_fused(x, w, alpha, beta, out_kind=out_kind)
+            ref = conv3x3_fused_plain(x, w, alpha, beta, out_kind)
+            lib = conv3x3_int8_xla(x, w, alpha, beta, out_kind)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            share = (ref > 0).float().mean().item()
+            log(f"phase 9: K3 {label:17s} x{list(shape)} -> {cout} out {out_kind}: "
+                f"max|err| {err} vs plain, {lib_err} vs library; nonzero share {share:.3f}")
+            if not (got.dtype == ref.dtype and torch.equal(got, ref) and torch.equal(lib, ref)):
+                raise AssertionError(f"K3 differs at {label} {shape} -> {cout} ({out_kind})")
+            if not 0.0 < share < 1.0:
+                raise AssertionError(f"degenerate K3 test outputs at {label} {shape}")
+    bf16_err = 0.0
+    for shape, cout in [((2, 34, 282, 128), 128), ((2, 20, 70, 64), 128),
+                        ((2, 11, 19, 3), 20), ((1, 9, 13, 24), 40)]:
+        x, w, alpha, beta = _k3_inputs(shape, cout, torch.bfloat16, gen)
+        got = conv3x3_fused(x, w, alpha, beta)
+        ref = conv3x3_fused_plain(x, w, alpha, beta)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = BF16_TOL * max(ref.float().abs().max().item(), 1.0)
+        log(f"phase 9: K3 bf16 x{list(shape)} -> {cout}: max|err| {err:.3g} (bound {tol:.3g})")
+        if not (got.dtype == torch.bfloat16 and err <= tol):
+            raise AssertionError(f"K3 bf16 differs at {shape} -> {cout}")
+        bf16_err = max(bf16_err, err)
+    log("phase 9: ok, K3 bit-exact (tolerance 0) against its plain version and the "
+        f"library route on int8 inputs; bf16 inputs within {BF16_TOL} of the scale")
+    return 0.0, bf16_err
+
+
+def phase10_serve_int8(cfg):
+    from tpu_unet_torch.data import synthetic_dataset
+    from tpu_unet_torch.infer import TileInference, evaluate
+    from tpu_unet_torch.infer.quant import (QuantInference, default_quant_names,
+                                            load_quant_params)
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    data = synthetic_dataset(n_images=4, h=IMAGE, w=IMAGE, crop=TILE_OUT, seed=0)
+    engine = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT)
+    n_tiles = len(data) * engine.plan.num_tiles
+    n_chunks = -(-n_tiles // engine.batch_tiles)
+    qpath = os.path.join(HERE, "build", "chip_smoke_int8.npz")
+    if os.path.exists(qpath):
+        os.remove(qpath)
+    results, launches = [], []
+    for run in ("calibrated and saved", "served from the .npz"):
+        conv3x3_fused.launches = 0
+        t0 = time.perf_counter()
+        results.append(evaluate(model, data, tile_out=TILE_OUT, verbose=False,
+                                quant="int8", quant_path=qpath))
+        torch.cuda.synchronize()
+        launches.append(conv3x3_fused.launches)
+        log(f"phase 10: evaluate(quant='int8') {run} in {time.perf_counter() - t0:.2f} s: "
+            f"{launches[-1]} K3 launches for {n_tiles} tiles in {n_chunks} chunk(s); "
+            f"{json.dumps(results[-1])}")
+        if launches[-1] != 14 * n_chunks:
+            raise AssertionError(f"{launches[-1]} K3 launches, want 14 x {n_chunks}")
+        if not os.path.exists(qpath):
+            raise AssertionError(f"{qpath} was not written")
+    first, second = ({k: v for k, v in r.items() if k != "seconds"} for r in results)
+    if not all(np.isfinite(first[k]) for k in ("iou_mean", "pe_mean")):
+        raise AssertionError(f"int8 evaluate() result {first}")
+    if first != second:
+        raise AssertionError(f"served from the .npz: {second}, calibrated: {first}")
+    qp = load_quant_params(qpath)
+    if qp.qnames != default_quant_names(cfg):
+        raise AssertionError(f"the .npz holds int8 convs {sorted(qp.qnames)}")
+
+    qis = {impl: QuantInference(qp, impl=impl, device=DEVICE) for impl in ("pallas", "xla")}
+    tiles = engine._flat_tiles(engine._on_device(data.images[:1], torch.float32))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the float layers run twice
+    n_int8 = 0
+    for stage in QUANT_STAGES + [None]:
+        got = qis["pallas"].apply(tiles, stop_after=stage)
+        want = qis["xla"].apply(tiles, stop_after=stage)
+        n_int8 += got.dtype == torch.int8
+        if not torch.equal(got, want):
+            raise AssertionError(f"QuantInference 'pallas' and 'xla' differ at {stage}")
+    torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 10: QuantInference 'pallas' (K3) and 'xla' (library) equal at all "
+        f"{len(QUANT_STAGES)} stages ({n_int8} int8) and the logits, on image 0's "
+        f"{tiles.shape[0]} tiles")
+
+    float_logits = engine.predict_logits(data.images[0])
+    int8_logits = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT,
+                                apply_fn=qis["pallas"].apply).predict_logits(data.images[0])
+    agree = (float_logits.argmax(-1) == int8_logits.argmax(-1)).float().mean().item()
+    log(f"phase 10: image 0 class maps, int8 vs bf16: equal on {agree:.5f} of the "
+        f"pixels (random weights: reported, not held to a bound)")
+    log("phase 10: ok")
+    return model, data, qp, launches[0]
+
+
+def phase11_time_int8(cfg, model, data, qp):
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.infer.quant import QuantInference
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
+                                               conv3x3_int8_xla)
+
+    xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
+    xla.load_state_dict(model.state_dict())
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+
+    def make(m, impl=None):
+        fn = None if impl is None else QuantInference(qp, impl=impl, device=DEVICE).apply
+        return TileInference(m, IMAGE, IMAGE, tile_out=TILE_OUT, apply_fn=fn)
+
+    engines = {"int8 'pallas'": make(model, "pallas"), "int8 'xla'": make(model, "xla"),
+               "float 'pallas'": make(model), "float 'xla'": make(xla)}
+    n_tiles = len(data) * engines["float 'pallas'"].plan.num_tiles
+    order = list(engines) + list(reversed(engines))
+    times = {k: [] for k in engines}
+    for key in order:
+        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+    tiles_s = {}
+    for key, ts in times.items():
+        ms = sum(ts) / len(ts)
+        tiles_s[key] = n_tiles / (ms / 1e3)
+        log(f"phase 11: evaluate_batch {key}: {ms:.2f} ms for {n_tiles} tiles of "
+            f"{TILE_IN}^2 = {tiles_s[key]:.1f} tiles/s (runs {[round(t, 3) for t in ts]})")
+    n = 3
+    window, busy, groups, top = _profile(
+        lambda r: engines["int8 'pallas'"].evaluate_batch(images, lab), n)
+    tiles_s["int8 'pallas' profiled_idle_share"] = 1.0 - busy / window
+    log(f"phase 11: profile of {n} evaluate_batch calls int8 'pallas': window "
+        f"{window / n:.3f} ms/call, device busy {busy / n:.3f} ms/call, idle share "
+        f"{1.0 - busy / window:.4f}; by group (ms/call): "
+        + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items()))
+    for name, ms in top:
+        log(f"phase 11:   {ms / n:9.3f} ms/call  {name[:110]}")
+    del engines, xla
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    total = {"kernel": 0.0, "library": 0.0, "plain": 0.0}
+    shapes = int8_shapes(cfg)
+    with torch.inference_mode():
+        for name, s, cin, cout in shapes:
+            x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen)
+            t = {"kernel": _time_ms(lambda: conv3x3_fused(x, w, alpha, beta,
+                                                          out_kind="int8"), 5),
+                 "library": _time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), 5),
+                 "plain": _time_ms(lambda: conv3x3_fused_plain(x, w, alpha, beta, "int8"), 2)}
+            for k in total:
+                total[k] += t[k]
+            nbytes, ops = conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)
+            b_ms, by = bound(nbytes, ops, "int8")
+            log(f"phase 11: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: K3 "
+                f"{t['kernel']:.3f} ms ({ops / t['kernel'] / 1e9:.1f} TOP/s), library "
+                f"{t['library']:.3f} ms ({ops / t['library'] / 1e9:.1f} TOP/s), plain "
+                f"{t['plain']:.3f} ms ({ops / t['plain'] / 1e9:.1f} TOP/s), bound "
+                f"{b_ms:.3f} ms ({by})")
+            del x, w, alpha, beta
+    total["bound"], total["bound_by"] = chunk_bound(shapes, "int8", 1, 1, 8)
+    ops = sum(conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)[1] for _, s, cin, cout in shapes)
+    log(f"phase 11: 14 int8 convs of one {BATCH_TILES}-tile chunk ({ops / 1e12:.3f} T int8 "
+        f"ops): K3 {total['kernel']:.2f} ms ({ops / total['kernel'] / 1e9:.1f} TOP/s), "
+        f"library {total['library']:.2f} ms, plain {total['plain']:.2f} ms, bound "
+        f"{total['bound']:.3f} ms ({total['bound_by']})")
+    return total, tiles_s
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -648,21 +929,28 @@ def main() -> None:
     launches = phase7_train(cfg)
     step_err = phase7_step_agreement(cfg)
     step_ms, edt_ms = phase8_time(cfg)
+    k3_err, k3_bf16_err = phase9_k3_vs_plain(cfg)
+    model, data, qp, int8_launches = phase10_serve_int8(cfg)
+    k3_total, int8_tiles_s = phase11_time_int8(cfg, model, data, qp)
+    del model
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
+    k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
     log(json.dumps({"kernels": [{
         "name": "conv3x3_bias_relu",
         "route": "cuda",
-        "backward_route": "library",
         "source": "tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
         "replaces": "tpu_unet/ops/conv_pallas.py:57",
         "launches": launches["conv3x3_bias_relu"],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": launches["conv3x3_bias_relu"]},
         "max_abs_err": max_err,
-        "grad_max_rel_err": grad_err,
         "ms": total["kernel"],
         "plain_ms": total["plain"],
-        "cudnn_bf16_ms": total["cudnn"],
+        "bound_ms": total["bound"],
+        "bound_by": total["bound_by"],
+        "library_ms": total["cudnn"],
+        "backward_route": "library",
+        "launches_by_path": {"serve": serve_launches,
+                             "train": launches["conv3x3_bias_relu"]},
+        "grad_max_rel_err": grad_err,
         "evaluate_tiles_per_s": tiles_s,
     }, {
         "name": "edt_column_pass",
@@ -670,11 +958,29 @@ def main() -> None:
         "source": "tpu_unet_torch/csrc/edt_column_pass.cu",
         "replaces": "tpu_unet/ops/edt_pallas.py:102",
         "launches": launches["edt_column_pass"],
-        "launches_by_path": {"train": launches["edt_column_pass"]},
         "max_abs_err": edt_err,
         "ms": edt_ms[band_key]["kernel"],
         "plain_ms": edt_ms[band_key]["plain"],
+        "bound_ms": k2_bound_ms,
+        "bound_by": k2_by,
+        "library_ms": None,
+        "launches_by_path": {"train": launches["edt_column_pass"]},
         "ms_by_case": edt_ms,
+    }, {
+        "name": "conv3x3_fused",
+        "route": "cuda",
+        "source": "tpu_unet_torch/csrc/conv3x3_fused.cu",
+        "replaces": "tpu_unet/ops/conv_tiles.py:155",
+        "launches": int8_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_total["kernel"],
+        "plain_ms": k3_total["plain"],
+        "bound_ms": k3_total["bound"],
+        "bound_by": k3_total["bound_by"],
+        "library_ms": k3_total["library"],
+        "bf16_max_abs_err": k3_bf16_err,
+        "launches_by_path": {"serve_int8": int8_launches},
+        "evaluate_tiles_per_s": int8_tiles_s,
     }], "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tpu_unet.config import AugmentConfig
 from tpu_unet.data import augment as jaug
 from tpu_unet.data.synthetic import synthetic_dataset
 from tpu_unet.ops import warp as jwarp
+from tpu_unet_torch.config import AugmentConfig
 from tpu_unet_torch.data import augment as taug
 from tpu_unet_torch.ops import warp as twarp
 

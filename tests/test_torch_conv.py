@@ -102,15 +102,21 @@ def test_wrapper_rejects_other_devices():
 def test_build_names_library_by_source_hash():
     srcs = _build.sources()
     assert [os.path.basename(s) for s in srcs] == ["conv3x3_bias_relu.cu",
+                                                   "conv3x3_fused.cu",
                                                    "edt_column_pass.cu"]
     path = _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert _build.BUILD_DIR.endswith(os.path.join("build", "tpu_unet_torch"))
     assert _build.source_hash() in os.path.basename(path)
-    cmd = _build.nvcc_command("nvcc", "out.so")
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
-    assert cmd[-len(srcs):] == srcs          # one nvcc call builds every kernel
+    # one nvcc -c per source (started together), then one link
+    cmds = _build.compile_commands("nvcc", "objs")
+    assert [c[-1] for c in cmds] == srcs
+    for cmd in cmds:
+        assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+        assert {"-std=c++17", "-O3", "-fPIC", "-c"} <= set(cmd)
+        assert cmd[-3:-1] == ["-o", os.path.join("objs", os.path.basename(cmd[-1])[:-3] + ".o")]
+    link = _build.link_command("nvcc", ["a.o", "b.o"], "out.so")
+    assert {"-shared", "-fPIC"} <= set(link) and link[-3:] == ["out.so", "a.o", "b.o"]
 
 
 
@@ -139,8 +145,11 @@ def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
     path = _build.build()
     assert path == _build.library_path() and os.path.exists(path)
+    n_calls = len(_build.sources()) + 1          # a compile per source, one link
+    assert calls.read_text().count("x") == n_calls
     assert _build.build() == path
-    assert calls.read_text().count("x") == 1
+    assert calls.read_text().count("x") == n_calls
+    assert os.listdir(tmp_path / "build") == [os.path.basename(path)]
 
 
 def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):

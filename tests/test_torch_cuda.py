@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: K1 (fused 3x3 conv + bias + ReLU)
-and its gradient, and K2 (the EDT column pass). These tests import no JAX
+and its gradient, K2 (the EDT column pass) and K3 (the fused int8/bf16 conv
+of quantized serving). These tests import no JAX
 (the machine with the card has none) and skip without a CUDA device. Run
 them on the card with
 
@@ -14,6 +15,8 @@ import torch
 from tpu_unet_torch.models import ModelConfig, UNet
 from tpu_unet_torch.ops.conv_pallas import (conv3x3_bias_relu,
                                             conv3x3_bias_relu_plain)
+from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
+                                           conv3x3_int8_xla)
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +166,105 @@ def test_column_pass_refuses_what_it_does_not_take(cuda):
         column_pass(g2.transpose(1, 2))
     with pytest.raises(ValueError):
         column_pass(g2[None], num_valid=torch.tensor([1], dtype=torch.int32))
+
+
+def _k3_inputs(shape, cout, dtype, device, seed=0, offset=0):
+    """int8 (or bf16) x and w, f32 alpha and beta that put the outputs
+    across [0, 127]. `offset` > 0 places x that many bytes past a 16-byte
+    boundary, which the kernel must take on its scalar load path."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cin = shape[-1]
+    if dtype == torch.int8:
+        n = int(torch.tensor(shape).prod())
+        buf = torch.randint(-127, 128, (n + offset,), generator=g, device=device,
+                            dtype=torch.int8)
+        x = buf[offset:].view(shape)
+        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, device=device,
+                          dtype=torch.int8)
+        alpha = torch.rand((cout,), generator=g, device=device) * 2e-3 / cin ** 0.5
+        beta = torch.randn((cout,), generator=g, device=device) * 3
+    else:
+        x = torch.randn(shape, generator=g, device=device).to(dtype)
+        w = (torch.randn((3, 3, cin, cout), generator=g, device=device)
+             / (9 * cin) ** 0.5).to(dtype)
+        alpha = torch.ones((cout,), device=device)
+        beta = torch.randn((cout,), generator=g, device=device) * 0.1
+    return x, w, alpha, beta
+
+
+@pytest.mark.parametrize("shape,cout,offset", [
+    ((2, 10, 12, 16), 8, 0),        # Cin 16, Cout 8: 16-byte loads
+    ((1, 9, 13, 24), 40, 0),        # Cin 24: the scalar load path, ragged Cout
+    ((2, 10, 12, 16), 8, 3),        # x off its 16-byte alignment
+    ((1, 12, 40, 3), 5, 0),         # K = 27 < one staged step
+    ((2, 20, 70, 128), 256, 0),     # a main-path channel pair, ragged pixels
+])
+@pytest.mark.parametrize("out_kind", ["int8", "bf16"])
+def test_fused_kernel_is_bit_exact_int8(cuda, shape, cout, offset, out_kind):
+    """K3 on int8 inputs against its plain version and the int8 library
+    route: the int32 sums are exact and the epilogue is the same two f32
+    roundings, so all three agree bit for bit."""
+    x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, cuda, offset=offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    before = conv3x3_fused.launches
+    got = conv3x3_fused(x, w, alpha, beta, out_kind=out_kind)
+    assert conv3x3_fused.launches == before + 1
+    ref = conv3x3_fused_plain(x, w, alpha, beta, out_kind)
+    lib = conv3x3_int8_xla(x, w, alpha, beta, out_kind)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == (torch.int8 if out_kind == "int8" else torch.bfloat16)
+    assert torch.equal(got, ref) and torch.equal(lib, ref)
+    if out_kind == "int8":
+        assert 0 < (ref > 0).float().mean() < 1 and int(ref.max()) <= 127
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 11, 19, 16), 24), ((1, 9, 13, 3), 5)])
+def test_fused_kernel_bf16_inputs_match_plain(cuda, shape, cout):
+    """bf16 x bf16 -> f32 sums, bf16 out: the kernel and the plain version
+    sum in other orders; held at 2e-2 of the output's scale, as K1."""
+    x, w, alpha, beta = _k3_inputs(shape, cout, torch.bfloat16, cuda)
+    got = conv3x3_fused(x, w, alpha, beta)
+    ref = conv3x3_fused_plain(x, w, alpha, beta)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * max(ref.float().abs().max().item(), 1.0), err
+
+
+def test_fused_kernel_refuses_what_it_does_not_take(cuda):
+    x, w, alpha, beta = _k3_inputs((1, 6, 7, 16), 8, torch.int8, cuda)
+    before = conv3x3_fused.launches
+    with pytest.raises(TypeError):
+        conv3x3_fused(x, w.to(torch.bfloat16), alpha, beta)        # mixed dtypes
+    with pytest.raises(TypeError):
+        conv3x3_fused(x.float(), w.float(), alpha, beta)
+    with pytest.raises(TypeError):
+        conv3x3_fused(x, w, alpha.double(), beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_fused(x.transpose(1, 2).contiguous().transpose(1, 2), w, alpha, beta)
+    with pytest.raises(ValueError):
+        conv3x3_fused(x, w, alpha.cpu(), beta)
+    assert conv3x3_fused.launches == before
+
+
+def test_quant_inference_kernel_matches_library_route(cuda):
+    """A narrow int8 engine on the card: every stage under impl='pallas' (K3,
+    14 launches per forward) equals impl='xla' (the library route)."""
+    from tpu_unet_torch.infer.quant import (QuantInference, add_concat_scales,
+                                            calibrate, default_quant_names,
+                                            prepare_quant_params)
+
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand((2, 188, 188, 1), device=cuda)
+    scales = add_concat_scales(cfg, calibrate(model, x))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16))
+    engines = {impl: QuantInference(qp, impl=impl, device=cuda) for impl in ("pallas", "xla")}
+    before = conv3x3_fused.launches
+    logits = engines["pallas"].apply(x)
+    assert conv3x3_fused.launches == before + 14
+    assert torch.equal(logits, engines["xla"].apply(x)) and torch.isfinite(logits).all()
+    for stage in ("enc1_conv2", "pool2", "bottleneck_conv2", "up1", "dec1_conv1",
+                  "dec0_conv1"):
+        got = engines["pallas"].apply(x, stop_after=stage)
+        assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage

@@ -1,6 +1,7 @@
-"""The port imports no JAX: a fresh interpreter imports every module of
-tpu_unet_torch, runs a tiny evaluate() and a tiny Trainer.fit(), and finds
-no `jax` or `triton` module loaded and no kernel library built."""
+"""The port imports no JAX and nothing of the JAX package: a fresh
+interpreter imports every module of tpu_unet_torch, runs a tiny evaluate()
+(float and int8) and a tiny Trainer.fit(), and finds no `jax`, `triton` or
+`tpu_unet` module loaded and no kernel library built."""
 
 import ast
 import os
@@ -19,7 +20,7 @@ for mod in pkgutil.walk_packages(tpu_unet_torch.__path__, "tpu_unet_torch."):
     importlib.import_module(mod.name)
 assert _build._lib is None, "a kernel library was loaded at import"
 
-from tpu_unet.config import DatasetConfig, ModelConfig, TrainConfig
+from tpu_unet_torch.config import DatasetConfig, ModelConfig, TrainConfig
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.infer import evaluate
 from tpu_unet_torch.models import UNet
@@ -29,6 +30,10 @@ model = UNet(ModelConfig(base_width=2, conv_impl="pallas"))
 data = synthetic_dataset(n_images=2, h=48, w=48, n_cells=2, crop=20, seed=1)
 result = evaluate(model, data, tile_out=36, verbose=False)
 assert result["num_images"] == 2, result
+qpath = os.path.join(tempfile.mkdtemp(), "qp.npz")
+wide = UNet(ModelConfig(base_width=8, conv_impl="pallas"))
+result = evaluate(wide, data, tile_out=36, verbose=False, quant="int8", quant_path=qpath)
+assert os.path.exists(qpath) and result["num_images"] == 2, result
 ds = DatasetConfig(name="s", crop=20, metric="iou", weight_mode="distance",
                    goal=1.0, goal_direction="max")
 history = Trainer(ds, ModelConfig(base_width=2, conv_impl="pallas"),
@@ -36,7 +41,7 @@ history = Trainer(ds, ModelConfig(base_width=2, conv_impl="pallas"),
                   verbose=False, device="cpu").fit(data, data, epochs=0)
 assert len(history["loss"]) == 1, history
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "optax", "triton"))
+                if m.split(".")[0] in ("jax", "flax", "optax", "triton", "tpu_unet"))
 assert not loaded, loaded
 assert _build._lib is None and not os.path.exists(_build.library_path())
 print("OK")
@@ -52,10 +57,13 @@ def test_port_runs_without_jax():
 
 
 def test_no_module_of_the_port_imports_jax_or_triton():
-    """No source file of tpu_unet_torch names jax, flax or triton in an
-    import, so no import of the package can reach them."""
-    banned = {"jax", "flax", "optax", "triton"}
-    for path in (REPO / "tpu_unet_torch").rglob("*.py"):
+    """No source file of tpu_unet_torch, and not chip_smoke.py, names jax,
+    flax, optax, triton or the JAX package tpu_unet in an import, so no
+    import of the port can reach them."""
+    banned = {"jax", "flax", "optax", "triton", "tpu_unet"}
+    paths = sorted((REPO / "tpu_unet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(paths) > 30
+    for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

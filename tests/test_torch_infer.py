@@ -12,19 +12,19 @@ from PIL import Image
 
 import jax.numpy as jnp
 
-from tpu_unet.config import ModelConfig
 from tpu_unet.data import synthetic_dataset as jax_synthetic_dataset
 from tpu_unet.infer import evaluate as jax_evaluate
 from tpu_unet.losses.metrics import batch_evaluation_metrics as jax_metrics
 from tpu_unet.models import UNet as JaxUNet
 from tpu_unet.ops.pad import reflect_pad as jax_reflect_pad
+from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.convert import state_dict_from_jax_params
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.infer import TileInference, evaluate, make_tile_batch_forward
 from tpu_unet_torch.losses import batch_evaluation_metrics, iou, pixel_error
 from tpu_unet_torch.models import UNet
 from tpu_unet_torch.ops import reflect_pad
-from tests.test_torch_model import numpy_params
+from tests.test_torch_model import jax_config, numpy_params
 
 # The slice at test size: 2 images of 96x96, tile_out 52 -> 4 tiles each.
 DATA_ARGS = dict(n_images=2, h=96, w=96, n_cells=2, crop=20, seed=5)
@@ -34,7 +34,7 @@ TILE_OUT = 52
 @pytest.fixture(scope="module")
 def pallas_models():
     cfg = ModelConfig(base_width=4, conv_impl="pallas")
-    jmodel = JaxUNet(cfg)
+    jmodel = JaxUNet(jax_config(cfg))
     params = numpy_params(jmodel, 188, seed=7)
     model = UNet(cfg)
     model.load_state_dict(state_dict_from_jax_params(params))
@@ -107,8 +107,11 @@ def test_evaluate_groups_shapes_and_rejects_quant(pallas_models):
     data.targets = [data.targets[0], data.targets[1][:, :80]]
     result = evaluate(model, data, tile_out=TILE_OUT, verbose=False)
     assert result["num_images"] == 2 and np.isfinite(result["pe_mean"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        evaluate(model, data, quant="int8", verbose=False)
+    # int8 serving takes both shape groups too; the tiers not ported raise
+    result = evaluate(model, data, tile_out=TILE_OUT, verbose=False, quant="int8")
+    assert result["num_images"] == 2 and np.isfinite(result["pe_mean"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        evaluate(model, data, quant="int4", verbose=False)
 
 
 def test_synthetic_dataset_matches_jax():

@@ -11,12 +11,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tpu_unet.config import ModelConfig
+from tpu_unet.config import ModelConfig as JaxModelConfig
 from tpu_unet.models import UNet as JaxUNet
 from tpu_unet.models import center_crop_or_pad as jax_crop
 from tpu_unet_torch.convert import (load_reference_checkpoint,
                                     state_dict_from_jax_params,
                                     state_dict_from_reference)
+from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.models import UNet, center_crop_or_pad
 from tests.test_convert import _random_reference_state_dict
 from tests.test_parity_forward import _torch_oracle_forward
@@ -38,9 +39,15 @@ def numpy_params(jmodel, size, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
+def jax_config(cfg, cls=JaxModelConfig):
+    """The JAX package's config built from the fields of the port's `cfg`
+    (the two packages' config dataclasses have the same fields)."""
+    return cls(**dataclasses.asdict(cfg))
+
+
 def _jax_and_port(cfg, seed=0, size=188):
     x = np.random.RandomState(seed).rand(1, size, size, 1).astype(np.float32)
-    jmodel = JaxUNet(cfg)
+    jmodel = JaxUNet(jax_config(cfg))
     params = numpy_params(jmodel, size, seed)
     model = UNet(cfg)
     model.load_state_dict(state_dict_from_jax_params(params))

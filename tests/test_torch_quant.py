@@ -1,0 +1,350 @@
+"""The port's int8 serving (tpu_unet_torch/ops/conv_tiles.py,
+infer/quant.py, the int8 path of infer/tester.py) against the JAX package
+on the CPU, given the same numpy weights and inputs: the quantizers, K3's
+plain version and the int8 library route, weight quantization, calibration,
+every stage of the quantized forward, and the .npz files in both
+directions. evaluate(quant='int8') is held in test_torch_quant_eval.py."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_unet.infer import quant as jq
+from tpu_unet.models import UNet as JaxUNet
+from tpu_unet.ops import conv_tiles as jct
+from tpu_unet_torch.config import ModelConfig
+from tpu_unet_torch.convert import state_dict_from_jax_params
+from tpu_unet_torch.infer import quant as tq
+from tpu_unet_torch.models import UNet
+from tpu_unet_torch.ops import conv_tiles as tct
+from tests.test_torch_model import jax_config, numpy_params
+
+SIZE = 188                       # the smallest input; bottleneck 8 (even)
+MIN_CHANNELS = 16                # at base width 8: 14 of the 18 convs int8
+
+
+def _int8(rng, shape, lo=-127, hi=128):
+    return rng.randint(lo, hi, shape).astype(np.int8)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    """A port tensor as numpy, bf16 widened to f32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _jnp(a):
+    """A JAX array as numpy, bf16 widened to f32."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype == jnp.bfloat16 else a
+
+
+# ------------------------------------------------------------------ ops
+
+
+def test_quantizers_bit_equal():
+    rng = np.random.RandomState(0)
+    x = (rng.randn(3, 7, 9, 5) * 2).astype(np.float32)
+    # values on the rounding boundaries: half to even, as jnp.round
+    x[0, 0, 0] = [0.5, 1.5, -2.5, 300.0, -300.0]
+    for scale in (0.01, 1 / 127, 0.37):
+        np.testing.assert_array_equal(
+            tct.quantize_activations(_t(x), scale).numpy(),
+            np.asarray(jct.quantize_activations(jnp.asarray(x), scale)))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    np.testing.assert_array_equal(
+        tct.quantize_activations(_t(x).to(torch.bfloat16), 0.05).numpy(),
+        np.asarray(jct.quantize_activations(xb, 0.05)))
+    w = (rng.randn(3, 3, 6, 10) * 0.1).astype(np.float32)
+    w[..., 3] = 0.0                                  # an all-zero channel
+    q, s = tct.quantize_weights(_t(w))
+    jqw, js = jct.quantize_weights(jnp.asarray(w))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqw))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def _conv_args(rng, shape, cout):
+    x = _int8(rng, shape)
+    w = _int8(rng, (3, 3, shape[-1], cout))
+    alpha = (rng.rand(cout) * 2e-4).astype(np.float32)
+    beta = (rng.randn(cout) * 3).astype(np.float32)
+    return x, w, alpha, beta
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 10, 12, 16), 8),    # Cin 16, Cout 8
+                                        ((1, 9, 13, 24), 40)])   # ragged rows/Cout
+def test_int8_conv_routes_match_jax(shape, cout):
+    """K3's plain version, K3's wrapper (its plain version on the CPU) and
+    the int8 library route against JAX's XLA int8 conv and its Pallas
+    kernel in interpret mode, for both out kinds: bit for bit."""
+    x, w, alpha, beta = _conv_args(np.random.RandomState(1), shape, cout)
+    jargs = [jnp.asarray(a) for a in (x, w, alpha, beta)]
+    targs = [_t(a) for a in (x, w, alpha, beta)]
+    for out_kind in ("int8", "bf16"):
+        ref = _jnp(jct.conv3x3_int8_xla(*jargs, out_kind=out_kind))
+        pallas = _jnp(jct.conv3x3_fused(*jargs, out_kind=out_kind, block_rows=4,
+                                        interpret=True))
+        np.testing.assert_array_equal(pallas, ref)
+        for got in (tct.conv3x3_fused_plain(*targs, out_kind),
+                    tct.conv3x3_fused(*targs, out_kind=out_kind, block_rows=4),
+                    tct.conv3x3_int8_xla(*targs, out_kind=out_kind)):
+            assert got.dtype == (torch.int8 if out_kind == "int8" else torch.bfloat16)
+            np.testing.assert_array_equal(_np(got), ref)
+    assert tct.conv3x3_fused.launches == 0            # CPU calls don't count
+
+
+def test_int8_library_route_in_blocks(monkeypatch):
+    """The im2col in blocks of whole images and of rows of one image gives
+    the one-shot result."""
+    x, w, alpha, beta = [_t(a) for a in _conv_args(np.random.RandomState(2),
+                                                   (3, 11, 10, 8), 16)]
+    whole = tct.conv3x3_int8_xla(x, w, alpha, beta, out_kind="int8")
+    for limit in (2 * 9 * 8 * 72, 3 * 8 * 72):     # 2 images; 3 rows
+        monkeypatch.setattr(tct, "IM2COL_BYTES", limit)
+        assert len(list(tct._row_blocks(3, 9, 8 * 72))) > 1
+        torch.testing.assert_close(tct.conv3x3_int8_xla(x, w, alpha, beta, "int8"),
+                                   whole, rtol=0, atol=0)
+
+
+def test_bf16_inputs_match_jax_pallas():
+    """bf16 x bf16 -> f32 accumulation (the Pallas body's float kind): the
+    plain version against the Pallas kernel in interpret mode, at one bf16
+    ulp of the output (the two sum in f32 in other orders)."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(1, 8, 11, 16).astype(np.float32)
+    w = (rng.randn(3, 3, 16, 24) * 0.1).astype(np.float32)
+    alpha = np.ones(24, np.float32)
+    beta = (rng.randn(24) * 0.1).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    ref = _jnp(jct.conv3x3_fused(jx, jw, jnp.asarray(alpha), jnp.asarray(beta),
+                                 block_rows=4, interpret=True))
+    got = tct.conv3x3_fused(_t(x).to(torch.bfloat16), _t(w).to(torch.bfloat16),
+                            _t(alpha), _t(beta))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), ref, rtol=2 ** -7, atol=1e-6)
+
+
+def test_fused_conv_checks_its_tiling_like_jax():
+    assert tct.BEST_CONFIGS == jct.BEST_CONFIGS
+    for cin, cout in [(64, 128), (512, 512), (16, 8), (128, 300), (640, 1024)]:
+        assert tct.best_config(cin, cout) == jct.best_config(cin, cout)
+    x, w, alpha, beta = [_t(a) for a in _conv_args(np.random.RandomState(4),
+                                                   (1, 6, 6, 16), 24)]
+    jargs = [jnp.asarray(a.numpy()) for a in (x, w, alpha, beta)]
+    with pytest.raises(ValueError, match="variant"):
+        tct.conv3x3_fused(x, w, alpha, beta, variant="winograd")
+    with pytest.raises(ValueError, match="variant"):
+        jct.conv3x3_fused(*jargs, variant="winograd", interpret=True)
+    with pytest.raises(ValueError, match="cout_tile"):
+        tct.conv3x3_fused(x, w, alpha, beta, cout_tile=16)
+    with pytest.raises(AssertionError):
+        jct.conv3x3_fused(*jargs, cout_tile=16, interpret=True)
+    with pytest.raises(ValueError, match="out_kind"):
+        tct.conv3x3_fused(x, w, alpha, beta, out_kind="f32")
+    # 'auto' takes the measured config; None block_rows/cout_tile are filled
+    y = tct.conv3x3_fused(x, w, alpha, beta, variant="auto", block_rows=None)
+    torch.testing.assert_close(y, tct.conv3x3_fused_plain(x, w, alpha, beta),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match=r"\[3, 3, 16, Cout\]"):
+        tct.conv3x3_fused(x, w[:, :, :8], alpha, beta)
+
+
+# ------------------------------------------------- calibration and weights
+
+
+def make_nets():
+    """The JAX and the port U-Net at base width 8 on the same numpy weights,
+    f32 (for calibration) and bf16 (as served), with one numpy input."""
+    cfg = ModelConfig(base_width=8)
+    jmodel = JaxUNet(jax_config(cfg))
+    params = numpy_params(jmodel, SIZE, seed=11)
+    out = {"cfg": cfg, "jmodel": jmodel, "params": params,
+           "x": np.random.RandomState(5).rand(2, SIZE, SIZE, 1).astype(np.float32)}
+    for dtype in ("float32", "bfloat16"):
+        model = UNet(dataclasses.replace(cfg, compute_dtype=dtype))
+        model.load_state_dict(state_dict_from_jax_params(params))
+        out[dtype] = model
+    return out
+
+
+@pytest.fixture(scope="module")
+def nets():
+    return make_nets()
+
+
+def test_default_quant_names_match_jax():
+    for kw in [{}, {"base_width": 8}, {"base_width": 4, "depth": 3},
+               {"base_width": 16, "width_mult": 2}]:
+        cfg = ModelConfig(**kw)
+        jcfg = jax_config(cfg)
+        assert tq._conv_names(cfg) == jq._conv_names(jcfg)
+        for mc in (16, 128):
+            assert tq.default_quant_names(cfg, mc) == jq.default_quant_names(jcfg, mc)
+            assert tq.default_int4_names(cfg, mc) == jq.default_int4_names(jcfg, mc)
+    full = tq.default_quant_names(ModelConfig())
+    assert len(full) == 14 and {"enc0_conv1", "enc0_conv2", "enc1_conv1",
+                                "dec0_conv2"}.isdisjoint(full)
+
+
+def test_calibrate_matches_jax(nets):
+    """The f32 model's scales at rtol 1e-4 (JAX and torch sum f32 convs in
+    other orders), the same keys (every conv, up{d}, head, input), and the
+    concat scales."""
+    x = nets["x"]
+    expected = jq.calibrate(nets["jmodel"], nets["params"], jnp.asarray(x))
+    got = tq.calibrate(nets["float32"], torch.from_numpy(x))
+    assert set(got) == set(expected)
+    assert {"input", "head", "up0", "bottleneck_conv2"} <= set(got)
+    for k in expected:
+        assert got[k] == pytest.approx(expected[k], rel=1e-4), k
+    cat = tq.add_concat_scales(nets["cfg"], expected)
+    assert cat == jq.add_concat_scales(nets["jmodel"].cfg, expected)
+    imgs = [np.random.RandomState(k).rand(150, 230).astype(np.float32) * 9
+            for k in range(3)]
+    np.testing.assert_array_equal(tq.calibration_batch(imgs).numpy(),
+                                  np.asarray(jq.calibration_batch(imgs)))
+
+
+@pytest.fixture(scope="module")
+def qparams(nets):
+    """One QuantParams per package from the same weights and scales."""
+    scales = jq.add_concat_scales(nets["jmodel"].cfg, jq.calibrate(
+        nets["jmodel"], nets["params"], jnp.asarray(nets["x"])))
+    names = jq.default_quant_names(nets["jmodel"].cfg, MIN_CHANNELS)
+    jqp = jq.prepare_quant_params(nets["jmodel"].cfg, nets["params"], scales, names)
+    tqp = tq.prepare_quant_params(nets["cfg"], nets["float32"], scales, names)
+    return jqp, tqp
+
+
+def _assert_qp_equal(tqp, jqp):
+    assert tqp.qnames == jqp.qnames and tqp.scales == jqp.scales
+    assert dataclasses.asdict(tqp.cfg) == dataclasses.asdict(jqp.cfg)
+    assert set(tqp.qconv) == set(jqp.qconv) and set(tqp.fconv) == set(jqp.fconv)
+    for name, (w_q, s_w, b) in jqp.qconv.items():
+        for got, want in zip(tqp.qconv[name], (w_q, s_w, b)):
+            np.testing.assert_array_equal(_np(got), _jnp(want), err_msg=name)
+    for name, (k, b) in jqp.fconv.items():
+        assert tqp.fconv[name][0].dtype == (torch.float32 if k.dtype == jnp.float32
+                                            else torch.bfloat16), name
+        np.testing.assert_array_equal(_np(tqp.fconv[name][0]), _jnp(k), err_msg=name)
+        np.testing.assert_array_equal(_np(tqp.fconv[name][1]), _jnp(b), err_msg=name)
+
+
+def test_prepare_quant_params_bit_equal(nets, qparams):
+    jqp, tqp = qparams
+    _assert_qp_equal(tqp, jqp)
+    assert len(tqp.qconv) == 14
+    # the same from the port's state_dict and from the JAX-layout tree
+    again = tq.prepare_quant_params(nets["cfg"], nets["params"], tqp.scales, tqp.qnames)
+    _assert_qp_equal(again, jqp)
+
+
+# ------------------------------------------------------ the int8 forward
+
+STAGES = ([f"enc{d}_conv{i}" for d in range(4) for i in (1, 2)]
+          + [f"pool{d}" for d in range(4)] + ["bottleneck_conv1", "bottleneck_conv2"]
+          + [f"up{d}" for d in range(4)]
+          + [f"dec{d}_conv{i}" for d in range(4) for i in (1, 2)])
+
+
+@pytest.fixture(scope="module")
+def jax_stages(nets, qparams):
+    """JAX's impl='xla' outputs at every stage and the logits, per skip
+    variant."""
+    out = {}
+    x = jnp.asarray(nets["x"])
+    for skip in ("paper", "parity"):
+        jqp = dataclasses.replace(qparams[0], cfg=dataclasses.replace(
+            qparams[0].cfg, skip_variant=skip))
+        qi = jq.QuantInference(jqp, impl="xla")
+        out[skip] = {st: np.asarray(qi.apply(x, stop_after=st)) for st in STAGES}
+        out[skip]["logits"] = np.asarray(qi.apply(x))
+    return out
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("skip", ["paper", "parity"])
+def test_every_stage_matches_jax(nets, qparams, jax_stages, skip, impl):
+    """Given the same QuantParams, every stage of the port's forward equals
+    JAX's (impl='xla') bit for bit: the int8 stages, and here the bf16 ones
+    too; the logits at rtol 1e-4."""
+    tqp = dataclasses.replace(qparams[1], cfg=dataclasses.replace(
+        qparams[1].cfg, skip_variant=skip))
+    qi = tq.QuantInference(tqp, impl=impl, device="cpu")
+    x = torch.from_numpy(nets["x"])
+    n_int8 = 0
+    for st in STAGES:
+        want = jax_stages[skip][st]
+        got = qi.apply(x, stop_after=st)
+        assert got.shape == want.shape, st
+        if want.dtype == np.int8:
+            n_int8 += 1
+            assert got.dtype == torch.int8, st
+        np.testing.assert_array_equal(_np(got), _jnp(want), err_msg=st)
+    assert n_int8 >= 12
+    logits = qi.apply(x)
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), jax_stages[skip]["logits"],
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_forward_options(nets, qparams, jax_stages):
+    """upconv_impl='matmul', a per-layer route mix and block_rows given: the
+    same logits as the default engine; the unported options raise."""
+    x = torch.from_numpy(nets["x"])
+    want = jax_stages["paper"]["logits"]
+    tqp = qparams[1]
+    for kw in ({"upconv_impl": "matmul"},
+               {"impl": "pallas", "layer_impl": {"enc2_conv1": "xla"}, "block_rows": 8}):
+        got = tq.QuantInference(tqp, device="cpu", **kw).apply(x).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="impl"):
+        tq.QuantInference(tqp, impl="cuda", device="cpu")
+    for mode in ("bf16", "int8"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tq.QuantInference(tqp, phase_level0=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tq.QuantInference(dataclasses.replace(tqp, q4names=frozenset({"dec1_conv1"})),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tq.prepare_quant_params(nets["cfg"], nets["params"], tqp.scales,
+                                q4names=frozenset({"dec1_conv1"}))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tq.build_quant_inference(nets["bfloat16"], x, int4=True)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tq.build_quant_inference(nets["bfloat16"], x, phase_level0="int8")
+
+
+def test_npz_crosses_both_ways(nets, qparams, jax_stages, tmp_path):
+    """A .npz written by JAX serves in the port, and one written by the port
+    serves in JAX, with the logits of the engine it came from."""
+    jqp, tqp = qparams
+    x = nets["x"]
+    want = jax_stages["paper"]["logits"]
+    jq.save_quant_params(str(tmp_path / "jax"), jqp)
+    from_jax = tq.load_quant_params(str(tmp_path / "jax"))
+    _assert_qp_equal(from_jax, jqp)
+    got = tq.QuantInference(from_jax, device="cpu").apply(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), tq.QuantInference(
+        tqp, device="cpu").apply(torch.from_numpy(x)).numpy())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+    tq.save_quant_params(str(tmp_path / "port.npz"), tqp)
+    from_port = jq.load_quant_params(str(tmp_path / "port.npz"))
+    assert from_port.cfg == jqp.cfg and from_port.qnames == jqp.qnames
+    np.testing.assert_array_equal(
+        np.asarray(jq.QuantInference(from_port).apply(jnp.asarray(x))), want)
+
+    j4 = jq.prepare_quant_params(jqp.cfg, nets["params"], jqp.scales, jqp.qnames,
+                                 q4names=frozenset({"dec1_conv1"}))
+    jq.save_quant_params(str(tmp_path / "int4.npz"), j4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tq.load_quant_params(str(tmp_path / "int4.npz"))

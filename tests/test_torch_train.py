@@ -18,14 +18,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tpu_unet.config import (AugmentConfig, DatasetConfig, LossConfig, ModelConfig,
-                             OptimConfig, TrainConfig)
+from tpu_unet.config import OptimConfig as JaxOptimConfig
 from tpu_unet.models import UNet as JaxUNet
 from tpu_unet.ops.conv_pallas import conv3x3_bias_relu as jax_conv
 from tpu_unet.train.optimizer import make_optimizer as jax_make_optimizer
 from tpu_unet.train.trainer import TrainState
 from tpu_unet.train.trainer import make_train_step as jax_make_train_step
 from tpu_unet.losses.weights import make_weight_fn as jax_make_weight_fn
+from tpu_unet_torch.config import (AugmentConfig, DatasetConfig, LossConfig, ModelConfig,
+                                   OptimConfig, TrainConfig)
 from tpu_unet_torch.convert import state_dict_from_jax_params
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.losses.weights import make_weight_fn
@@ -35,7 +36,7 @@ from tpu_unet_torch.train import (Trainer, make_optimizer, plateau_init, plateau
                                   set_learning_rate)
 from tpu_unet_torch.train.checkpoint import Checkpointer
 from tpu_unet_torch.train.trainer import make_train_step
-from tests.test_torch_model import numpy_params
+from tests.test_torch_model import jax_config, numpy_params
 
 
 def _scale_close(got, expected, tol):
@@ -114,9 +115,9 @@ def test_train_step_matches_jax(conv_impl, base_width):
     cfg = ModelConfig(base_width=base_width, conv_impl=conv_impl)
     inp = np.random.RandomState(2).rand(2, 380, 380, 1).astype(np.float32)
     gt = _blob_labels(2, 5, 20, 3)
-    jmodel = JaxUNet(cfg)
+    jmodel = JaxUNet(jax_config(cfg))
     params = numpy_params(jmodel, 380, 5)
-    tx = jax_make_optimizer(OptimConfig())
+    tx = jax_make_optimizer(JaxOptimConfig())
     jstep = jax_make_train_step(jmodel, jax_make_weight_fn("distance", max_objects=8),
                                 "intended", tx)
     jstate, jloss, jmetrics = jstep(TrainState(params, tx.init(params)),
@@ -177,7 +178,7 @@ def test_sgd_momentum_and_lr_match_optax():
     opt = make_optimizer([p], cfg)
     from tpu_unet.train.optimizer import set_learning_rate as jax_set_lr
 
-    tx = jax_make_optimizer(cfg)
+    tx = jax_make_optimizer(jax_config(cfg, JaxOptimConfig))
     params = jnp.asarray(w0)
     state = tx.init(params)
     for k, g in enumerate(grads):

@@ -12,10 +12,13 @@ Layering (mirrors tpu_unet):
   infer/     overlap-tile inference engine, evaluation entry point, export
   train/     trainer, optimizer and plateau scheduler, checkpoints,
              progress curves, folds
+  config     the configuration dataclasses and dataset presets
+  core/      valid-conv size arithmetic and the overlap-tile planner
   convert    JAX params and reference .pth files -> the port's state_dict
+  native     ctypes binding of the host C++ ground-truth preprocessing
 
-Shared with tpu_unet (they import no JAX): config.ModelConfig,
-core.geometry, convert.NAME_MAP and its layout transforms, native.
+It imports nothing of tpu_unet: config, core.geometry and convert's name map
+and layout transforms are the port's own copies of the JAX package's.
 """
 
 __version__ = "0.1.0"

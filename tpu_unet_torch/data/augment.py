@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tpu_unet.config import AugmentConfig
+from tpu_unet_torch.config import AugmentConfig
 from tpu_unet_torch.ops.pad import fold_reflect
 from tpu_unet_torch.ops.warp import (_angle_trig, _bspline3_weights, _mirror_index,
                                      draw_uniform_fields, elastic_fields, elastic_warp,

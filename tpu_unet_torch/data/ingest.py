@@ -53,13 +53,15 @@ def preprocess_gt(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     (dilated - instance) into a global edge mask; subtract the edge mask from
     the labels and clip at 0.
 
-    Returns (gt, edge_mask). Uses the shared native C++ kernel
-    (``tpu_unet.native``) when it builds; numpy otherwise."""
-    from tpu_unet import native
+    Returns (gt, edge_mask). Uses the native C++ kernel
+    (`tpu_unet_torch.native`) for integer ids when it builds; numpy
+    otherwise, with the same result."""
+    from tpu_unet_torch import native
 
-    if native.has_native() and np.issubdtype(np.asarray(img).dtype, np.integer):
-        gt, edge = native.preprocess_gt(np.asarray(img, np.int32))
-        return gt.astype(np.float64), edge.astype(np.float64)
+    if np.issubdtype(np.asarray(img).dtype, np.integer):
+        out = native.preprocess_gt(np.asarray(img, np.int32))
+        if out is not None:
+            return out[0].astype(np.float64), out[1].astype(np.float64)
     return _preprocess_gt_py(img)
 
 

@@ -1,0 +1,514 @@
+"""Int8 quantized U-Net serving (counterpart of the int8 part of
+``tpu_unet/infer/quant.py``).
+
+* Post-training quantization, symmetric: per-tensor activation scales
+  (calibrated: abs-max over sample tiles / 127) and per-output-channel
+  weight scales.
+* The 3x3 convs whose input has at least `min_channels` channels (default
+  128: 14 of the 18 at full width) run int8 x int8 -> int32 with a fused
+  scale + bias + ReLU + requantize epilogue, and int8 activations between
+  them. Two routes, with equal results: ``impl='pallas'`` runs K3, the
+  hand-written Hopper kernel (`ops.conv_tiles.conv3x3_fused`), and
+  ``impl='xla'`` the library route (`ops.conv_tiles.conv3x3_int8_xla`,
+  im2col + cuBLASLt's int8 GEMM on the card).
+* Max-pool runs on int8 directly (order-preserving); the upconvs, the
+  low-channel convs and the 1x1 head stay bf16 with f32 sums; decoder
+  concats happen in int8 (the skip is requantized in place, and float skips
+  are captured already quantized at the concat scale).
+
+`QuantParams` holds the JAX package's layouts (HWIO kernels, the spatially
+flipped transposed-conv kernels of ``up{d}``) as CPU tensors, so a
+``.npz`` written by either package serves in the other; `QuantInference`
+converts them to its device and PyTorch's layouts once.
+
+The float convs run in f32 on bf16-valued tensors and add the f32 bias
+before one bf16 rounding, as the JAX package's ``preferred_element_type``
+convs do. On the card they may run in TF32: a bf16 value is exact in TF32,
+so the products are those of f32.
+
+Not ported yet: the int4 tier (ROADMAP queue 1, item 10) and the
+phase-packed level 0 (item 8).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+from typing import Dict, FrozenSet, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_unet_torch.config import ModelConfig
+from tpu_unet_torch.convert import kernel_to_convtranspose_weight, params_from_state_dict
+from tpu_unet_torch.models.unet import _max_pool2, center_crop_or_pad
+from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int8_xla,
+                                           quantize_activations, quantize_weights)
+
+_INT4 = "the int4 tier is not ported yet (ROADMAP queue 1, item 10)"
+_PHASE = "phase-packed level 0 is not ported yet (ROADMAP queue 1, item 8)"
+
+
+def _conv_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    names = []
+    for d in range(cfg.depth):
+        names += [f"enc{d}_conv1", f"enc{d}_conv2"]
+    names += ["bottleneck_conv1", "bottleneck_conv2"]
+    for d in reversed(range(cfg.depth)):
+        names += [f"dec{d}_conv1", f"dec{d}_conv2"]
+    return tuple(names)
+
+
+def default_quant_names(cfg: ModelConfig, min_channels: int = 128) -> FrozenSet[str]:
+    """The 3x3 convs whose cin (the contraction depth) reaches
+    `min_channels`: the set the JAX package measured int8 to win on."""
+    w = cfg.widths
+    out = set()
+    for d in range(cfg.depth):
+        cin1 = cfg.in_channels if d == 0 else w[d - 1]
+        if cin1 >= min_channels:
+            out.add(f"enc{d}_conv1")
+        if w[d] >= min_channels:
+            out.add(f"enc{d}_conv2")
+    if w[cfg.depth - 1] >= min_channels:
+        out.add("bottleneck_conv1")
+    if w[cfg.depth] >= min_channels:
+        out.add("bottleneck_conv2")
+    for d in range(cfg.depth):
+        if 2 * w[d] >= min_channels:
+            out.add(f"dec{d}_conv1")
+        if w[d] >= min_channels:
+            out.add(f"dec{d}_conv2")
+    return frozenset(out)
+
+
+def default_int4_names(cfg: ModelConfig, min_channels: int = 128) -> FrozenSet[str]:
+    """The int4 tier's conv set: every int8 conv outside level 0. The tier
+    itself is not ported yet (ROADMAP item 10); the set is what it will
+    serve."""
+    level0 = {"enc0_conv1", "enc0_conv2", "dec0_conv1", "dec0_conv2"}
+    return frozenset(default_quant_names(cfg, min_channels) - level0)
+
+
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+@torch.inference_mode()
+def calibrate(model, sample_batch) -> Dict[str, float]:
+    """Run the float `model` on representative tiles and record per-tensor
+    activation scales: {name: scale} for every conv output (post-ReLU max /
+    127), every upconv and the head (abs-max / 127), and the input.
+
+    `sample_batch` [B, H, W, 1] should be normalized like serving inputs."""
+    x = torch.as_tensor(sample_batch, dtype=torch.float32).to(_model_device(model))
+    captured: Dict[str, torch.Tensor] = {}
+    model(x, capture=captured)
+    scales: Dict[str, float] = {"input": float(x.abs().max()) / 127.0}
+    for name, out in captured.items():
+        if name.startswith(("enc", "dec", "bottleneck")):
+            m = float(out.max().clamp_min(0.0))     # the consumed post-ReLU max
+        else:                                       # up{d} (signed) and head
+            m = float(out.abs().max())
+        scales[name] = max(m, 1e-6) / 127.0
+    return scales
+
+
+@dataclasses.dataclass
+class QuantParams:
+    """Serving parameters, CPU tensors in the JAX package's layouts: int8
+    HWIO kernels with per-output-channel scales and f32 biases for the
+    quantized convs, bf16 kernels (f32 for the level-0 convs) and f32 biases
+    for the float rest. `q4names`/`q4conv` are the int4 tier's, empty until
+    it is ported."""
+
+    cfg: ModelConfig
+    qnames: FrozenSet[str]
+    scales: Dict[str, float]
+    qconv: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # (w_q, s_w, bias)
+    fconv: Dict[str, Tuple[torch.Tensor, torch.Tensor]]                # (kernel, bias)
+    q4names: FrozenSet[str] = frozenset()
+    q4conv: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default_factory=dict)
+
+
+# The level-0 convs keep f32 kernels in fconv, as the JAX package stores them
+# (its phase engine quantizes them from full precision).
+_LEVEL0_CONVS = ("enc0_conv1", "enc0_conv2", "dec0_conv1", "dec0_conv2")
+
+
+def _jax_layout(params) -> Mapping:
+    """The inner ``{name: {'kernel', 'bias'}}`` JAX-layout tree of `params`:
+    a port UNet, its state_dict, or a JAX-layout tree."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    if any("." in str(k) for k in params):
+        params = params_from_state_dict(params)
+    return params.get("params", params)
+
+
+def _cpu_f32(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32)).clone()
+
+
+def prepare_quant_params(cfg: ModelConfig, params, scales: Dict[str, float],
+                         qnames: Optional[FrozenSet[str]] = None,
+                         q4names: Optional[FrozenSet[str]] = None) -> QuantParams:
+    """Quantize the weights of `params` (a port UNet, its state_dict, or a
+    JAX-layout parameter tree) for serving with the calibrated `scales`."""
+    if q4names:
+        raise NotImplementedError(_INT4)
+    if qnames is None:
+        qnames = default_quant_names(cfg)
+    qnames = frozenset(qnames)
+    p = _jax_layout(params)
+    qconv, fconv = {}, {}
+    for name in _conv_names(cfg):
+        kernel = _cpu_f32(p[name]["kernel"])
+        bias = _cpu_f32(p[name]["bias"])
+        if name in qnames:
+            w_q, s_w = quantize_weights(kernel)
+            qconv[name] = (w_q, s_w, bias)
+        else:
+            fconv[name] = (kernel if name in _LEVEL0_CONVS
+                           else kernel.to(torch.bfloat16), bias)
+    for name in [f"up{d}" for d in range(cfg.depth)] + ["head"]:
+        fconv[name] = (_cpu_f32(p[name]["kernel"]).to(torch.bfloat16),
+                       _cpu_f32(p[name]["bias"]))
+    return QuantParams(cfg=cfg, qnames=qnames, scales=dict(scales), qconv=qconv,
+                       fconv=fconv)
+
+
+@contextlib.contextmanager
+def _tf32_for_bf16_values():
+    """Let cuDNN and cuBLAS run f32 convs and matmuls in TF32 inside: only
+    for operands that hold bf16 values, which TF32 represents exactly."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class QuantInference:
+    """Mixed int8/bf16 forward with the U-Net's geometry (both skip
+    variants). `impl`: 'pallas' (K3) or 'xla' (the int8 library route);
+    `layer_impl` overrides it per conv name. `block_rows=None` asks K3 for
+    the per-shape TPU configs (`best_config`), which it validates and does
+    not need. `upconv_impl`: 'xla' (transposed conv) or 'matmul' (one
+    matmul + depth-to-space). `device`: where it runs (default: the CUDA
+    card when there is one)."""
+
+    def __init__(self, qp: QuantParams, impl: str = "xla",
+                 block_rows: Optional[int] = None,
+                 interpret: Optional[bool] = None,
+                 layer_impl: Optional[Dict[str, str]] = None,
+                 upconv_impl: str = "xla",
+                 phase_level0: Optional[str] = None,
+                 device=None):
+        if impl not in ("pallas", "xla"):
+            raise ValueError(f"impl must be 'pallas' or 'xla', got {impl!r}")
+        if phase_level0 not in (None, "bf16", "int8"):
+            raise ValueError(f"phase_level0 must be None, 'bf16' or 'int8', got "
+                             f"{phase_level0!r}")
+        if phase_level0:
+            raise NotImplementedError(_PHASE)
+        if qp.q4names:
+            raise NotImplementedError(_INT4)
+        if upconv_impl not in ("xla", "matmul"):
+            raise ValueError(f"upconv_impl must be 'xla' or 'matmul', got {upconv_impl!r}")
+        for name, li in (layer_impl or {}).items():
+            if li not in ("pallas", "xla"):
+                raise ValueError(f"layer_impl[{name!r}] must be 'pallas' or 'xla', got {li!r}")
+        del interpret                     # the CPU runs K3's plain version
+        self.qp = qp
+        self.impl = impl
+        self.block_rows = block_rows
+        self.layer_impl = dict(layer_impl or {})
+        self.upconv_impl = upconv_impl
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        dev = self.device
+        # the weights in PyTorch's layouts on the device, once
+        self._wq = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.qconv.items()}
+        self._fconv, self._up = {}, {}
+        for name, (k, b) in qp.fconv.items():
+            k = k.to(torch.bfloat16).float()
+            if name.startswith("up"):
+                wt = torch.from_numpy(kernel_to_convtranspose_weight(k.numpy()).copy())
+                self._up[name] = (wt.to(dev), b.to(dev))
+            elif name == "head":
+                self._head = (k[0, 0].to(dev), b.to(dev))        # [C, O]
+            else:
+                self._fconv[name] = (k.permute(3, 2, 0, 1).contiguous().to(dev), b.to(dev))
+        self._epilogues: Dict[Tuple[str, float], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._scalars: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
+
+    # -- primitives ---------------------------------------------------------
+
+    def _scalar(self, s: float, dtype=torch.float32) -> torch.Tensor:
+        """`s` as a 0-dim tensor on the device, made once."""
+        key = (s, dtype)
+        if key not in self._scalars:
+            self._scalars[key] = _scalar(s, self.device, dtype)
+        return self._scalars[key]
+
+    def _deq(self, v: torch.Tensor, s) -> torch.Tensor:
+        """Dequantize: None = float already; a float = int8 at that scale,
+        multiplied in bf16 by bf16(s)."""
+        if s is None:
+            return v
+        return v.to(torch.bfloat16) * self._scalar(s, torch.bfloat16)
+
+    def _quantize(self, v: torch.Tensor, s: float) -> torch.Tensor:
+        return quantize_activations(v, self._scalar(s))
+
+    def _epilogue_vectors(self, name: str, s_in: float):
+        """alpha = s_in * s_w / s_out and beta = bias / s_out in f32,
+        computed on the CPU as JAX computes them, then kept on the device."""
+        key = (name, s_in)
+        if key not in self._epilogues:
+            _, s_w, bias = self.qp.qconv[name]
+            s_out = self.qp.scales[name]
+            alpha = (s_in * s_w / s_out).float()
+            beta = (bias / s_out).float()
+            self._epilogues[key] = (alpha.to(self.device), beta.to(self.device))
+        return self._epilogues[key]
+
+    def _conv_f(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        k, b = self._fconv[name]
+        with _tf32_for_bf16_values():
+            y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
+        return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+
+    def _conv(self, name: str, v: torch.Tensor, s_in):
+        """One 3x3 conv + ReLU. (v, s_in) -> (v, s_out); s None = float
+        (bf16), a float = int8 at that scale."""
+        qp = self.qp
+        if name not in qp.qnames:
+            return self._conv_f(name, self._deq(v, s_in)), None
+        if s_in is None:
+            s_in = qp.scales[self._input_scale_key(name)]
+            v = self._quantize(v, s_in)
+        alpha, beta = self._epilogue_vectors(name, s_in)
+        w_q = self._wq[name]
+        v = v.contiguous()
+        if self.layer_impl.get(name, self.impl) == "xla":
+            return conv3x3_int8_xla(v, w_q, alpha, beta, out_kind="int8"), qp.scales[name]
+        y = conv3x3_fused(v, w_q, alpha, beta, out_kind="int8",
+                          block_rows=self.block_rows,
+                          variant="auto" if self.block_rows is None else "nconcat")
+        return y, qp.scales[name]
+
+    def _upconv(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        """2x2 stride-2 transposed conv, f32 sums of bf16 values, + f32 bias,
+        one bf16 rounding."""
+        wt, b = self._up[name]
+        x = v.to(torch.bfloat16).float()
+        with _tf32_for_bf16_values():
+            if self.upconv_impl == "matmul":
+                bsz, h, w, cin = x.shape
+                co = wt.shape[1]
+                y = x.reshape(-1, cin) @ wt.permute(0, 2, 3, 1).reshape(cin, 4 * co)
+                y = (y.reshape(bsz, h, w, 2, 2, co) + b).to(torch.bfloat16)
+                return y.permute(0, 1, 3, 2, 4, 5).reshape(bsz, 2 * h, 2 * w, co)
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2)
+        return (y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+
+    def _input_scale_key(self, name: str) -> str:
+        """Calibration key of a quantized conv's float input tensor (the
+        producing tensor: pooling keeps the scale)."""
+        if name == "enc0_conv1":
+            return "input"
+        if name.startswith("dec") and name.endswith("_conv1"):
+            return name + ":cat"
+        if name.endswith("_conv2"):
+            return name[:-1] + "1"
+        if name == "bottleneck_conv1":
+            return f"enc{self.qp.cfg.depth - 1}_conv2"
+        d = int(name[3])           # enc{d}_conv1, d > 0
+        return f"enc{d - 1}_conv2"
+
+    # -- forward ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def apply(self, x: torch.Tensor, stop_after: Optional[str] = None) -> torch.Tensor:
+        """x [B, H, W, 1] f32 (normalized) -> f32 logits, U-Net geometry.
+
+        `stop_after`: return the tensor right after the named stage
+        ('enc{d}_conv{i}', 'pool{d}', 'bottleneck_conv{i}', 'up{d}',
+        'dec{d}_conv{i}'): int8 after a quantized conv, bf16 otherwise."""
+        cfg, qp = self.qp.cfg, self.qp
+
+        def cut(name):
+            return stop_after is not None and name == stop_after
+
+        def capture_skip(d, v, s):
+            """A float skip feeding a quantized decoder conv is stored int8
+            at the concat scale at once (quantize and crop commute)."""
+            key = f"dec{d}_conv1:cat"
+            if s is None and f"dec{d}_conv1" in qp.qnames and key in qp.scales:
+                return self._quantize(v, qp.scales[key]), qp.scales[key]
+            return v, s
+
+        v, s = x.to(self.device, torch.float32).to(torch.bfloat16), None
+        skips = []
+        for d in range(cfg.depth):
+            v, s = self._conv(f"enc{d}_conv1", v, s)
+            if cut(f"enc{d}_conv1"):
+                return v
+            v, s = self._conv(f"enc{d}_conv2", v, s)
+            if cut(f"enc{d}_conv2"):
+                return v
+            if cfg.skip_variant == "paper":
+                skips.append(capture_skip(d, v, s))
+            v = _max_pool2(v)              # order-preserving: valid on int8
+            if cfg.skip_variant == "parity":
+                skips.append(capture_skip(d, v, s))
+            if cut(f"pool{d}"):
+                return v
+        v, s = self._conv("bottleneck_conv1", v, s)
+        if cut("bottleneck_conv1"):
+            return v
+        v, s = self._conv("bottleneck_conv2", v, s)
+        if cut("bottleneck_conv2"):
+            return v
+
+        for d in reversed(range(cfg.depth)):
+            u = self._upconv(f"up{d}", self._deq(v, s))
+            if cut(f"up{d}"):
+                return u
+            sk, sk_s = skips[d]
+            name = f"dec{d}_conv1"
+            if name in qp.qnames:
+                # the concat in int8: the int8 skip is requantized directly
+                # (round(q * sk_s / s_cat) is the requantize of its
+                # dequantized value) and the bf16 upconv output quantized
+                s_cat = qp.scales[name + ":cat"]
+                if sk_s is None:
+                    sk_q = self._quantize(sk, s_cat)
+                elif sk_s == s_cat:
+                    sk_q = sk
+                else:
+                    ratio = self._scalar(float(np.float32(sk_s / s_cat)))
+                    sk_q = torch.round(sk.float() * ratio).clamp_(-127.0, 127.0)
+                    sk_q = sk_q.to(torch.int8)
+                sk_q = center_crop_or_pad(sk_q, u.shape[1:3])
+                cat = torch.cat([sk_q, self._quantize(u, s_cat)], dim=-1)
+                v, s = self._conv(name, cat, s_cat)
+            else:
+                sk = center_crop_or_pad(self._deq(sk, sk_s), u.shape[1:3])
+                v, s = self._conv(name, torch.cat([sk, u], dim=-1), None)
+            if cut(name):
+                return v
+            v, s = self._conv(f"dec{d}_conv2", v, s)
+            if cut(f"dec{d}_conv2"):
+                return v
+
+        k, b = self._head
+        with _tf32_for_bf16_values():
+            y = self._deq(v, s).float() @ k
+        return y + b
+
+
+def calibration_batch(images, size: int = 188, n: int = 2) -> torch.Tensor:
+    """Normalized [n, size, size, 1] f32 center crops of eval images for
+    `calibrate`. Each whole image is normalized first, then cropped, as
+    serving normalizes whole images before tiling."""
+    out = []
+    for img in list(images)[:max(n, 1)]:
+        a = np.asarray(img, np.float32)
+        a = (a - a.min()) / max(np.ptp(a), 1e-12)
+        h, w = a.shape
+        if h < size or w < size:
+            a = np.pad(a, ((0, max(0, size - h)), (0, max(0, size - w))),
+                       mode="reflect")
+            h, w = a.shape
+        y0, x0 = (h - size) // 2, (w - size) // 2
+        out.append(a[y0:y0 + size, x0:x0 + size])
+    return torch.from_numpy(np.ascontiguousarray(np.stack(out)[..., None]))
+
+
+def add_concat_scales(cfg: ModelConfig, scales: Dict[str, float]) -> Dict[str, float]:
+    """Each decoder concat's scale from its two sources: max(skip post-ReLU
+    scale, |upconv| scale). Skip source: enc{d}_conv2."""
+    out = dict(scales)
+    for d in range(cfg.depth):
+        if f"enc{d}_conv2" in scales and f"up{d}" in scales:
+            out[f"dec{d}_conv1:cat"] = max(scales[f"enc{d}_conv2"], scales[f"up{d}"])
+    return out
+
+
+def save_quant_params(path: str, qp: QuantParams) -> None:
+    """Write `qp` to one .npz, in the JAX package's format (bf16 tensors
+    stored as f32), so either package serves it."""
+    arrays = {}
+    for name, (w_q, s_w, bias) in qp.qconv.items():
+        arrays[f"q:{name}:w"] = w_q.cpu().numpy()
+        arrays[f"q:{name}:s"] = s_w.cpu().numpy()
+        arrays[f"q:{name}:b"] = bias.cpu().numpy()
+    for name, (k, b) in qp.fconv.items():
+        arrays[f"f:{name}:k"] = k.cpu().float().numpy()
+        arrays[f"f:{name}:b"] = b.cpu().numpy()
+    meta = {
+        "cfg": dataclasses.asdict(qp.cfg),
+        "qnames": sorted(qp.qnames),
+        "q4names": sorted(qp.q4names),
+        "scales": qp.scales,
+    }
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    if not path.endswith(".npz"):
+        path += ".npz"         # np.savez appends it anyway; keep load symmetric
+    np.savez(path, **arrays)
+
+
+def load_quant_params(path: str) -> QuantParams:
+    """Inverse of `save_quant_params`; reads the JAX package's files too."""
+    if not path.endswith(".npz") and not os.path.exists(path):
+        path += ".npz"
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+        if meta.get("q4names"):
+            raise NotImplementedError(f"{path} holds int4 convs: {_INT4}")
+        cfg = ModelConfig(**meta["cfg"])
+        qconv, fconv = {}, {}
+        for key in z.files:
+            kind, _, rest = key.partition(":")
+            if kind == "q" and rest.endswith(":w"):
+                name = rest[:-2]
+                qconv[name] = tuple(torch.from_numpy(np.array(z[f"q:{name}:{x}"]))
+                                    for x in "wsb")
+            elif kind == "f" and rest.endswith(":k"):
+                name = rest[:-2]
+                k = torch.from_numpy(np.array(z[f"f:{name}:k"], np.float32))
+                fconv[name] = (k if name in _LEVEL0_CONVS else k.to(torch.bfloat16),
+                               torch.from_numpy(np.array(z[f"f:{name}:b"])))
+    return QuantParams(cfg=cfg, qnames=frozenset(meta["qnames"]),
+                       scales=dict(meta["scales"]), qconv=qconv, fconv=fconv)
+
+
+def build_quant_inference(model, sample_batch, min_channels: int = 128,
+                          impl: str = "xla", block_rows: Optional[int] = None,
+                          interpret: Optional[bool] = None,
+                          layer_impl: Optional[Dict[str, str]] = None,
+                          phase_level0: Optional[str] = None,
+                          int4: bool = False,
+                          int4_names: Optional[FrozenSet[str]] = None,
+                          ) -> QuantInference:
+    """Calibrate the port UNet `model` (which holds its weights) on
+    `sample_batch`, quantize it, and build the engine on the model's
+    device."""
+    if int4 or int4_names:
+        raise NotImplementedError(_INT4)
+    if phase_level0:
+        raise NotImplementedError(_PHASE)
+    cfg = model.cfg
+    scales = add_concat_scales(cfg, calibrate(model, sample_batch))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, min_channels))
+    return QuantInference(qp, impl=impl, block_rows=block_rows, interpret=interpret,
+                          layer_impl=layer_impl, device=_model_device(model))

@@ -3,7 +3,9 @@ metric aggregation (counterpart of ``tpu_unet/infer/tester.py``).
 
 The model holds its weights on its device, so `evaluate` takes no params.
 Engines are built per call: in eager PyTorch a `TileInference` holds only
-its tile plan, so there is nothing compiled to keep between calls.
+its tile plan, so there is nothing compiled to keep between calls. Nor is
+a calibrated int8 engine cached by the model's identity: `quant_path` keeps
+the calibration on disk instead.
 """
 
 from __future__ import annotations
@@ -39,6 +41,34 @@ def export_predictions(output_dir: str, idx: int, image: np.ndarray,
     _save_tiff(os.path.join(output_dir, "preds", f"pred{idx}.tif"), pred)
 
 
+_QUANT_ITEMS = {"int8-phase": "item 8", "int4": "item 10", "int4-phase": "items 8 and 10"}
+
+
+def _get_quant_inference(model, prepared, quant_path: Optional[str]):
+    """The int8 engine for `model`. An existing `quant_path` (.npz, either
+    package's) is served from disk with no calibration; otherwise the model
+    is calibrated on the eval images, and the result saved to `quant_path`
+    when one is given.
+
+    K3 serves when ``model.cfg.conv_impl == 'pallas'``, the int8 library
+    route otherwise. (The JAX package always builds ``impl='xla'``, which
+    it measured faster on its TPU; the two routes give equal results.)"""
+    from tpu_unet_torch.infer.quant import (QuantInference, build_quant_inference,
+                                            calibration_batch, load_quant_params,
+                                            save_quant_params)
+
+    impl = "pallas" if model.cfg.conv_impl == "pallas" else "xla"
+    device = next(model.parameters()).device
+    if quant_path is not None and (os.path.exists(quant_path)
+                                   or os.path.exists(quant_path + ".npz")):
+        return QuantInference(load_quant_params(quant_path), impl=impl, device=device)
+    qi = build_quant_inference(model, calibration_batch([p[0] for p in prepared]),
+                               impl=impl)
+    if quant_path is not None:
+        save_quant_params(quant_path, qi.qp)
+    return qi
+
+
 def evaluate(
     model,
     data: SegmentationData,
@@ -46,24 +76,36 @@ def evaluate(
     tile_out: Optional[int] = None,
     verbose: bool = True,
     quant: Optional[str] = None,
+    quant_path: Optional[str] = None,
 ) -> Dict[str, float]:
     """Evaluate on gold-truth frames; returns mean/std IoU and pixel error
     and, with `output_dir`, writes the prediction TIFFs and ``test_iou.out``
     / ``test_pe.out``. Same-shaped frames (after the square crop) run as one
-    flat tile batch."""
-    if quant is not None:
-        raise NotImplementedError(
-            "quantized serving is not ported yet (ROADMAP queue 1, item 9)")
+    flat tile batch.
+
+    `quant='int8'` serves through the post-training-quantized forward
+    (infer/quant.py); `quant_path` serves from, or writes, its calibrated
+    parameters (.npz)."""
+    if quant in _QUANT_ITEMS:
+        raise NotImplementedError(f"quant={quant!r} is not ported yet (ROADMAP "
+                                  f"queue 1, {_QUANT_ITEMS[quant]})")
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant must be None, 'int8', 'int8-phase', 'int4' or "
+                         f"'int4-phase', got {quant!r}")
     start = time.time()
     prepared = [square_crop(data.images[i], data.targets[i])
                 for i in range(len(data))]
+    apply_fn = None
+    if quant == "int8":
+        apply_fn = _get_quant_inference(model, prepared, quant_path).apply
     groups: Dict[tuple, list] = {}
     for idx, (img, _tgt) in enumerate(prepared):
         groups.setdefault(img.shape, []).append(idx)
 
     per_image = [None] * len(data)
     for shape, indices in groups.items():
-        engine = TileInference(model, shape[0], shape[1], tile_out=tile_out)
+        engine = TileInference(model, shape[0], shape[1], tile_out=tile_out,
+                               apply_fn=apply_fn)
         imgs = np.stack([prepared[i][0] for i in indices]).astype(np.float32)
         labels = (np.stack([prepared[i][1] for i in indices]) > 127).astype(np.uint8)
         ms_dev, preds_dev = engine.evaluate_batch(imgs, labels)

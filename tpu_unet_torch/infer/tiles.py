@@ -1,7 +1,7 @@
 """Overlap-tile inference engine (counterpart of ``tpu_unet/infer/tiles.py``).
 
 The paper's overlap-tile strategy: tile the output domain
-(``tpu_unet.core.geometry.plan_tiles``), mirror-pad each tile's
+(``tpu_unet_torch.core.geometry.plan_tiles``), mirror-pad each tile's
 receptive-field context, run the valid-conv network per tile, stitch. With
 `tile_out` >= the image size it is one whole-image tile.
 
@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpu_unet.core.geometry import TilePlan, input_size_compute, plan_tiles
+from tpu_unet_torch.core.geometry import TilePlan, input_size_compute, plan_tiles
 from tpu_unet_torch.losses.metrics import batch_evaluation_metrics
 from tpu_unet_torch.models.unet import center_crop_or_pad
 from tpu_unet_torch.ops.pad import reflect_pad
@@ -35,11 +35,15 @@ class TileInference:
 
     def __init__(self, model, image_h: int, image_w: int,
                  tile_out=None, batch_tiles: int = 16,
-                 normalize: bool = True, mesh=None):
+                 normalize: bool = True, mesh=None, apply_fn=None):
         """`model`: a `tpu_unet_torch.models.UNet` holding its weights on the
         device to run on. tile_out=None plans one whole-image tile; an
         (h, w) pair plans rectangular strip tiles. `batch_tiles` tiles go
-        through the model per forward, on every entry point."""
+        through the model per forward, on every entry point.
+
+        `apply_fn(tiles) -> logits` replaces the model's forward for the
+        tile batches, e.g. an int8 `QuantInference.apply` (infer/quant.py);
+        the model then only names the device."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded tile inference is not ported yet (ROADMAP "
@@ -52,6 +56,7 @@ class TileInference:
         if batch_tiles < 1:
             raise ValueError(f"batch_tiles must be >= 1, got {batch_tiles}")
         self.model = model
+        self.apply_fn = apply_fn
         self.device = next(model.parameters()).device
         self.plan: TilePlan = plan_tiles(image_h, image_w, tile_out)
         self.batch_tiles = batch_tiles
@@ -64,7 +69,8 @@ class TileInference:
 
     def _forward(self, tile_batch: torch.Tensor) -> torch.Tensor:
         """[b, ti_h, ti_w, 1] -> [b, to_h, to_w, C] f32 logits."""
-        return center_crop_or_pad(self.model(tile_batch), self.plan.tile_out_hw)
+        fwd = self.model if self.apply_fn is None else self.apply_fn
+        return center_crop_or_pad(fwd(tile_batch), self.plan.tile_out_hw)
 
     def _flat_tiles(self, images: torch.Tensor) -> torch.Tensor:
         """[N, H, W] f32 -> [N*T, ti_h, ti_w, 1] gathered input tiles."""

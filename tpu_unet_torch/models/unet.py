@@ -14,6 +14,13 @@ ReLU kernel (`ops.conv_pallas.conv3x3_bias_relu`); ``'xla'`` through
 train: the kernel's gradient is its autograd.Function, the split form's is
 autograd's (the same cotangents as the JAX package's ``_scc_bwd``), and
 ``remat`` checkpoints each encoder level, as the JAX package does.
+
+``forward(x, capture=d)`` fills the dict `d` with every 3x3 conv's output,
+every ``up{d}`` output and the head's output, by layer name: the counterpart
+of Flax's ``capture_intermediates``, which quantized serving's calibration
+reads. A 3x3 conv's output is recorded after its ReLU (K1 fuses the two):
+its maximum clipped at 0, all that calibration reads, is the same either
+way.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpu_unet.config import ModelConfig
-from tpu_unet.core.geometry import output_size_for_input
+from tpu_unet_torch.config import ModelConfig
+from tpu_unet_torch.core.geometry import output_size_for_input
 from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -171,20 +178,28 @@ class UNet(nn.Module):
         p = getattr(self, name)
         return p["weight"].to(self.compute_dtype), p["bias"].to(self.compute_dtype)
 
-    def _conv3_relu(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _conv3_relu(self, name: str, x: torch.Tensor,
+                    capture: Optional[dict] = None) -> torch.Tensor:
         w, b = self._wb(name)
         if self.cfg.conv_impl == "pallas":
-            return conv3x3_bias_relu(x.contiguous(),
-                                     w.permute(2, 3, 1, 0).contiguous(), b)
-        return _nhwc(F.relu(F.conv2d(_nchw(x), w, b)))
+            y = conv3x3_bias_relu(x.contiguous(), w.permute(2, 3, 1, 0).contiguous(), b)
+        else:
+            y = _nhwc(F.relu(F.conv2d(_nchw(x), w, b)))
+        if capture is not None:
+            capture[name] = y
+        return y
 
     def _split_concat_conv3_relu(self, name: str, a: torch.Tensor,
-                                 b_: torch.Tensor) -> torch.Tensor:
+                                 b_: torch.Tensor,
+                                 capture: Optional[dict] = None) -> torch.Tensor:
         """relu(conv3x3(concat(a, b_)) + bias) without building the concat."""
         w, b = self._wb(name)
         ca = a.shape[-1]
         y = F.conv2d(_nchw(a), w[:, :ca]) + F.conv2d(_nchw(b_), w[:, ca:], b)
-        return _nhwc(F.relu(y))
+        y = _nhwc(F.relu(y))
+        if capture is not None:
+            capture[name] = y
+        return y
 
     def _upconv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.upconv_impl == "matmul":
@@ -194,11 +209,12 @@ class UNet(nn.Module):
         w, b = self._wb(name)
         return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=2))
 
-    def _enc_level(self, x: torch.Tensor, d: int) -> torch.Tensor:
-        x = self._conv3_relu(f"enc{d}_conv1", x)
-        return self._conv3_relu(f"enc{d}_conv2", x)
+    def _enc_level(self, x: torch.Tensor, d: int,
+                   capture: Optional[dict] = None) -> torch.Tensor:
+        x = self._conv3_relu(f"enc{d}_conv1", x, capture)
+        return self._conv3_relu(f"enc{d}_conv2", x, capture)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, capture: Optional[dict] = None) -> torch.Tensor:
         cfg = self.cfg
         # Reject sizes the valid-conv geometry can't carry (pooling would
         # silently floor odd extents and misalign the skips).
@@ -213,28 +229,33 @@ class UNet(nn.Module):
         x = x.to(self.compute_dtype)
         skips = []
         for d in range(cfg.depth):
-            if cfg.remat and torch.is_grad_enabled():
+            if cfg.remat and torch.is_grad_enabled() and capture is None:
                 # keep only the level's input; rerun its convs in the backward
                 x = checkpoint(self._enc_level, x, d, use_reentrant=False)
             else:
-                x = self._enc_level(x, d)
+                x = self._enc_level(x, d, capture)
             if cfg.skip_variant == "paper":
                 skips.append(x)
             x = _max_pool2(x)
             if cfg.skip_variant == "parity":
                 skips.append(x)
-        x = self._conv3_relu("bottleneck_conv1", x)
-        x = self._conv3_relu("bottleneck_conv2", x)
+        x = self._conv3_relu("bottleneck_conv1", x, capture)
+        x = self._conv3_relu("bottleneck_conv2", x, capture)
         for d in reversed(range(cfg.depth)):
             x = self._upconv(f"up{d}", x)
+            if capture is not None:
+                capture[f"up{d}"] = x
             skip = center_crop_or_pad(skips[d], x.shape[1:3])
             if cfg.split_concat_conv and cfg.conv_impl == "xla":
-                x = self._split_concat_conv3_relu(f"dec{d}_conv1", skip, x)
+                x = self._split_concat_conv3_relu(f"dec{d}_conv1", skip, x, capture)
             else:
-                x = self._conv3_relu(f"dec{d}_conv1", torch.cat([skip, x], -1))
-            x = self._conv3_relu(f"dec{d}_conv2", x)
+                x = self._conv3_relu(f"dec{d}_conv1", torch.cat([skip, x], -1), capture)
+            x = self._conv3_relu(f"dec{d}_conv2", x, capture)
         w, b = self._wb("head")
-        return F.linear(x, w.reshape(w.shape[0], w.shape[1]), b).float()
+        x = F.linear(x, w.reshape(w.shape[0], w.shape[1]), b)
+        if capture is not None:
+            capture["head"] = x
+        return x.float()
 
 
 def _check_config(cfg: ModelConfig) -> None:

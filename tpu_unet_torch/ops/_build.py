@@ -2,8 +2,9 @@
 
 The sources are compiled on first use with ``nvcc`` into one shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). The library lands in ``build/tpu_unet_torch/`` at the
-repository root, named by a hash of the sources and flags, so an edited
+build takes seconds): one ``nvcc -c`` per ``.cu`` file, all started
+together, then one link. The library lands in ``build/tpu_unet_torch/`` at
+the repository root, named by a hash of the sources and flags, so an edited
 source builds a new library. Nothing here runs when the module is imported.
 """
 
@@ -22,7 +23,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "tpu_unet_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -63,29 +64,49 @@ def find_nvcc() -> str:
         "kernels of tpu_unet_torch build from source on first use")
 
 
-def nvcc_command(nvcc: str, output: str) -> List[str]:
-    cu = [s for s in sources() if s.endswith(".cu")]
-    return [nvcc, *NVCC_FLAGS, "-o", output, *cu]
+def compile_commands(nvcc: str, out_dir: str) -> List[List[str]]:
+    """One ``nvcc -c`` per ``.cu`` source, each writing ``<name>.o`` into
+    `out_dir`."""
+    return [[nvcc, *NVCC_FLAGS, "-c", "-o",
+             os.path.join(out_dir, os.path.basename(cu)[:-3] + ".o"), cu]
+            for cu in sources() if cu.endswith(".cu")]
+
+
+def link_command(nvcc: str, objects: List[str], output: str) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-shared", "-o", output, *objects]
 
 
 def build() -> str:
     """Compile the library unless this source hash is built; returns its
-    path. Raises RuntimeError with nvcc's stderr when compilation fails."""
+    path. Raises RuntimeError with nvcc's stderr when a step fails."""
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    obj_dir = f"{path}.{os.getpid()}.objs"
+    os.makedirs(obj_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
+    try:
+        cmds = compile_commands(nvcc, obj_dir)
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        errors = []
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{cmd[-1]} (exit {proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError(f"nvcc failed building {path}:\n" + "\n".join(errors))
+        proc = subprocess.run(link_command(nvcc, [c[-2] for c in cmds], tmp),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking {path} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {path}:\n"
-            f"{proc.stderr}")
-    os.replace(tmp, path)
     return path
 
 
@@ -100,6 +121,10 @@ def load_library() -> ctypes.CDLL:
         for name in ("conv3x3_bias_relu_bf16", "conv3x3_bias_relu_f32"):
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            fn.restype = i
+        for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             fn.restype = i
         lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                             i, p]

@@ -1,0 +1,306 @@
+"""Fused 3x3 valid conv + scale + bias + ReLU (+ requantize) for int8 and
+bf16 serving: the Hopper kernel K3, its plain PyTorch version, the int8
+library route, and the quantizers.
+
+Counterpart of the int8 part of ``tpu_unet/ops/conv_tiles.py``. Layouts
+are the JAX package's: x NHWC ``[B, H, W, Cin]``, w HWIO ``[3, 3, Cin,
+Cout]``, alpha and beta f32 ``[Cout]`` -> ``[B, H-2, W-2, Cout]``.
+
+Quantization contract (symmetric, per-output-channel weights):
+  x_q = round(x / s_x),  w_q[..., c] = round(w[..., c] / s_w[c])
+  conv_f32 ~= acc_i32 * (s_x * s_w[c])
+  bf16 out : alpha = s_x * s_w,        beta = bias        -> relu(acc*a+b)
+  int8 out : alpha = s_x * s_w / s_y,  beta = bias / s_y  -> clamp(round(...),
+             0, 127) (post-ReLU activations are non-negative).
+Rounding is half to even everywhere, as ``jnp.round``; the epilogue
+multiplies and adds in two f32 roundings, as XLA does.
+
+Two routes compute the int8 conv:
+
+* `conv3x3_fused` (K3, ``impl='pallas'`` of the quantized engine): the
+  hand-written CUDA kernel in ``tpu_unet_torch/csrc/conv3x3_fused.cu``. On
+  a CPU tensor it runs `conv3x3_fused_plain`; on a CUDA tensor it launches
+  the kernel or raises, and counts the launch in ``conv3x3_fused.launches``.
+* `conv3x3_int8_xla` (``impl='xla'``): an im2col and ``torch._int_mm``
+  (cuBLASLt's int8 GEMM with int32 output on the card), the counterpart of
+  XLA's int8 conv, followed by the same epilogue in PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tpu_unet_torch.ops import _build
+
+_OUT_KINDS = ("auto", "int8", "bf16")
+_VARIANTS = ("nconcat", "taps", "rows3", "im2col")
+_INT32_MAX = 2 ** 31 - 1
+#: Largest im2col buffer `conv3x3_int8_xla` builds at once, in bytes.
+IM2COL_BYTES = 1 << 30
+
+
+def _scalar(s, device, dtype=torch.float32) -> torch.Tensor:
+    """`s` as a 0-dim tensor on `device`. Dividing a CUDA tensor by a Python
+    number multiplies by its reciprocal instead, which can differ in the
+    last bit from the division JAX does."""
+    return torch.as_tensor(s, dtype=dtype).to(device)
+
+
+# --- quantization helpers ---------------------------------------------------
+
+def quantize_activations(x: torch.Tensor, scale) -> torch.Tensor:
+    """f32/bf16 [..., C] -> int8 with the given (scalar) symmetric scale."""
+    q = torch.round(x.float() / _scalar(scale, x.device))
+    return q.clamp_(-127.0, 127.0).to(torch.int8)
+
+
+def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[3, 3, Cin, Cout] f32 -> (int8 weights, per-output-channel scales)."""
+    w = w.float()
+    s = w.abs().amax(dim=(0, 1, 2)) / _scalar(127.0, w.device)
+    s = torch.clamp_min(s, 1e-12)
+    q = torch.round(w / s).clamp_(-127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+# --- the epilogue and the plain version -------------------------------------
+
+def _resolve_out_kind(x: torch.Tensor, out_kind: str) -> str:
+    if out_kind not in _OUT_KINDS:
+        raise ValueError(f"out_kind must be one of {_OUT_KINDS}, got {out_kind!r}")
+    if out_kind == "auto":
+        return "int8" if x.dtype == torch.int8 else "bf16"
+    return out_kind
+
+
+def epilogue(acc: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+             out_kind: str) -> torch.Tensor:
+    """relu(acc * alpha + beta) in f32 (two roundings), then round-clamp to
+    int8 in [0, 127] or round to bf16."""
+    y = torch.relu(acc.float() * alpha.float() + beta.float())
+    if out_kind == "int8":
+        return torch.round(y).clamp_(0.0, 127.0).to(torch.int8)
+    return y.to(torch.bfloat16)
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                  beta: torch.Tensor) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC [B, H, W, Cin], got shape {tuple(x.shape)}")
+    cin = x.shape[3]
+    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"w must be HWIO [3, 3, {cin}, Cout], got shape "
+                         f"{tuple(w.shape)}")
+    cout = w.shape[3]
+    for name, t in (("alpha", alpha), ("beta", beta)):
+        if tuple(t.shape) != (cout,):
+            raise ValueError(f"{name} must be [{cout}], got shape {tuple(t.shape)}")
+    if x.shape[1] < 3 or x.shape[2] < 3:
+        raise ValueError(f"a 3x3 valid conv needs H, W >= 3, got "
+                         f"{x.shape[1]}x{x.shape[2]}")
+
+
+def conv3x3_fused_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                        beta: torch.Tensor, out_kind: str = "auto") -> torch.Tensor:
+    """What K3 computes, in plain PyTorch: the conv in f64 (exact for int8
+    values, since |acc| <= 9 * Cin * 127^2 < 2^53 at any Cin the model has),
+    rounded to int32 (int8 inputs) or f32 (float inputs), then `epilogue`."""
+    _check_shapes(x, w, alpha, beta)
+    out_kind = _resolve_out_kind(x, out_kind)
+    acc = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1))
+    acc = acc.permute(0, 2, 3, 1)
+    acc = acc.to(torch.int32) if x.dtype == torch.int8 else acc.float()
+    return epilogue(acc, alpha, beta, out_kind).contiguous()
+
+
+# --- the int8 library route ---------------------------------------------------
+
+def _row_blocks(bsz: int, ho: int, row_bytes: int
+                ) -> Iterator[Tuple[int, int, int, int]]:
+    """(b0, b1, y0, y1) blocks of output rows whose im2col stays within
+    IM2COL_BYTES: whole images where one fits, else rows of one image."""
+    if ho * row_bytes <= IM2COL_BYTES:
+        nb = max(1, IM2COL_BYTES // (ho * row_bytes))
+        for b0 in range(0, bsz, nb):
+            yield b0, min(b0 + nb, bsz), 0, ho
+        return
+    nr = max(1, IM2COL_BYTES // row_bytes)
+    for b in range(bsz):
+        for y0 in range(0, ho, nr):
+            yield b, b + 1, y0, min(y0 + nr, ho)
+
+
+def conv3x3_int8_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
+                     beta: torch.Tensor, out_kind: str = "bf16") -> torch.Tensor:
+    """The int8 conv through the library: im2col (tap-major, the HWIO order)
+    and ``torch._int_mm`` int8 x int8 -> int32, then `epilogue`. The im2col
+    is built in blocks of output rows of at most IM2COL_BYTES. On the card
+    ``_int_mm`` needs M > 16 and K, N multiples of 8: K and N are padded
+    with zeros and M with rows, which adds nothing to the sums."""
+    _check_shapes(x_q, w_q, alpha, beta)
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype} and {w_q.dtype}")
+    bsz, h, wd, cin = x_q.shape
+    cout = w_q.shape[3]
+    ho, wo = h - 2, wd - 2
+    k = 9 * cin
+    kp, np_ = -(-k // 8) * 8, -(-cout // 8) * 8
+    wm = torch.zeros((np_, kp), dtype=torch.int8, device=w_q.device)
+    wm[:cout, :k] = w_q.reshape(k, cout).t()
+    wm = wm.t()                          # [kp, np_], column-major for cuBLASLt
+    acc = torch.empty((bsz, ho, wo, cout), dtype=torch.int32, device=x_q.device)
+    for b0, b1, y0, y1 in _row_blocks(bsz, ho, wo * kp):
+        rows = y1 - y0
+        cols = (torch.zeros if kp > k else torch.empty)(
+            (b1 - b0, rows, wo, kp), dtype=torch.int8, device=x_q.device)
+        for dy in range(3):
+            for dx in range(3):
+                t = (dy * 3 + dx) * cin
+                cols[..., t:t + cin] = x_q[b0:b1, y0 + dy:y1 + dy, dx:dx + wo]
+        a = cols.view(-1, kp)
+        m = a.shape[0]
+        if m <= 16:
+            a = torch.cat([a, a.new_zeros((17 - m, kp))])
+        out = torch._int_mm(a, wm)[:m, :cout]
+        acc[b0:b1, y0:y1] = out.view(b1 - b0, rows, wo, cout)
+    return epilogue(acc, alpha, beta, _resolve_out_kind(x_q, out_kind))
+
+
+# --- K3 ---------------------------------------------------------------------
+
+# Per-shape winners among the TPU kernel's variants, (cin, cout) ->
+# (variant, block_rows, cout_tile), as the JAX package measured them on a TPU
+# v5e. `conv3x3_fused` accepts and validates these arguments as the JAX
+# function does; they do not steer the Hopper kernel, which has one design.
+BEST_CONFIGS = {
+    (64, 128): ("nconcat", 8, 128),
+    (128, 128): ("nconcat", 8, 128),
+    (128, 256): ("nconcat", 8, 256),
+    (256, 256): ("nconcat", 8, 256),
+    (256, 512): ("taps", 8, 256),
+    (512, 512): ("rows3", 8, 256),
+    (512, 1024): ("taps", 8, 256),
+    (1024, 1024): ("taps", 8, 256),
+    (1024, 512): ("taps", 8, 256),
+    (512, 256): ("taps", 8, 256),
+    (256, 128): ("nconcat", 16, 128),
+}
+
+
+def best_config(cin: int, cout: int) -> Tuple[str, int, int]:
+    """(variant, block_rows, cout_tile) for a 3x3 conv shape: the measured
+    winner when probed, else the channel-width heuristic the winners imply."""
+    got = BEST_CONFIGS.get((cin, cout))
+    if got is not None:
+        return got
+    variant = "taps" if cin >= 512 else "nconcat"
+    ct = cout if cout < 256 else 256
+    return (variant, 8, ct)
+
+
+def _check_tiling(cin: int, cout: int, block_rows: Optional[int],
+                  cout_tile: Optional[int], variant: str) -> None:
+    """The JAX function's argument checks: 'auto' fills what is None from
+    `best_config`; the variant must be known and the Cout tile divide Cout."""
+    if variant == "auto":
+        variant, auto_br, auto_ct = best_config(cin, cout)
+        block_rows = auto_br if block_rows is None else block_rows
+        cout_tile = auto_ct if cout_tile is None else cout_tile
+    if variant not in _VARIANTS:
+        raise ValueError(f"variant must be 'nconcat', 'taps', 'rows3' or 'im2col', "
+                         f"got {variant!r}")
+    block_rows = 16 if block_rows is None else block_rows
+    cout_tile = min(cout, 256) if cout_tile is None else cout_tile
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    if cout_tile < 1 or cout % cout_tile:
+        raise ValueError(f"cout_tile {cout_tile} does not divide Cout {cout}")
+
+
+_KERNEL_DTYPES = (torch.int8, torch.bfloat16)
+
+
+def _check_kernel_args(x, w, alpha, beta) -> None:
+    for name, t in (("w", w), ("alpha", alpha), ("beta", beta)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the kernel takes int8 or bfloat16 x, got {x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w is {w.dtype}, x is {x.dtype}: the kernel takes one "
+                        f"input dtype")
+    for name, t in (("alpha", alpha), ("beta", beta)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("w", w), ("alpha", alpha), ("beta", beta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.shape[0] < 1 or w.shape[3] < 1:
+        raise ValueError(f"empty batch or Cout: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if max(x.shape) > _INT32_MAX or 9 * x.shape[3] > _INT32_MAX:
+        raise ValueError(f"dimension past int32 in x {tuple(x.shape)}")
+
+
+def conv3x3_fused(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    *,
+    out_kind: str = "auto",
+    block_rows: Optional[int] = 16,
+    cout_tile: Optional[int] = None,
+    interpret: bool = False,
+    variant: str = "nconcat",
+) -> torch.Tensor:
+    """relu(conv_valid(x, w) * alpha + beta), optionally requantized.
+
+    x [B, H, W, Cin] (int8 or bf16), w [3, 3, Cin, Cout] (same dtype),
+    alpha/beta [Cout] f32. out_kind: 'int8' stores round-clamped int8, 'bf16'
+    stores bf16; 'auto' = int8 for int8 inputs. Returns [B, H-2, W-2, Cout].
+
+    `variant`, `block_rows` and `cout_tile` are the TPU kernel's tiling
+    arguments: they are checked as the JAX function checks them and do not
+    change what the Hopper kernel does; `interpret` is accepted and ignored.
+
+    On a CPU tensor: `conv3x3_fused_plain`. On a CUDA tensor: the Hopper
+    kernel, which takes contiguous tensors, counts each launch in
+    ``conv3x3_fused.launches``, and raises on what it does not take."""
+    del interpret
+    _check_shapes(x, w, alpha, beta)
+    _check_tiling(x.shape[3], w.shape[3], block_rows, cout_tile, variant)
+    out_kind = _resolve_out_kind(x, out_kind)
+    if x.device.type == "cpu":
+        return conv3x3_fused_plain(x, w, alpha, beta, out_kind)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_fused runs on cpu or cuda, not {x.device}")
+    _check_kernel_args(x, w, alpha, beta)
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out_dtype = torch.int8 if out_kind == "int8" else torch.bfloat16
+    y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=out_dtype, device=x.device)
+    # the kernel reads the weights as [Cout, 9*Cin]: K-contiguous per output
+    # channel, the layout its tensor-core fragments load from
+    wt = w.reshape(9 * cin, cout).t().contiguous()
+    lib = _build.load_library()
+    fn = lib.conv3x3_fused_s8 if x.dtype == torch.int8 else lib.conv3x3_fused_bf16
+    vec = int(cin * x.element_size() % 16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (x, wt)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), wt.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), bsz, h, wd, cin, cout, int(out_kind == "int8"), vec,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_fused launch failed: CUDA error {rc} "
+                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, "
+                           f"w {tuple(w.shape)}")
+    conv3x3_fused.launches += 1
+    return y
+
+
+#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+conv3x3_fused.launches = 0

@@ -14,7 +14,7 @@ from typing import Iterable, NamedTuple, Tuple
 
 import torch
 
-from tpu_unet.config import OptimConfig
+from tpu_unet_torch.config import OptimConfig
 
 
 class PlateauState(NamedTuple):

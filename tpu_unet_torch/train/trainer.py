@@ -26,9 +26,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_unet.config import (AugmentConfig, DatasetConfig, LossConfig, ModelConfig,
-                             TrainConfig)
-from tpu_unet.core.geometry import input_size_compute
+from tpu_unet_torch.config import (AugmentConfig, DatasetConfig, LossConfig, ModelConfig,
+                                   TrainConfig)
+from tpu_unet_torch.core.geometry import input_size_compute
 from tpu_unet_torch.data.augment import AugmentPipeline
 from tpu_unet_torch.data.ingest import SegmentationData, square_crop
 from tpu_unet_torch.losses.bce import weighted_bce_with_logits
