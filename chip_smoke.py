@@ -42,14 +42,35 @@ Phases, each printing its own lines:
      'pallas' (K3) equal to 'xla' (the library route);
  11. int8 serving times: evaluate_batch under int8 'pallas' and 'xla' and
      float 'pallas' and 'xla', and each int8 conv shape of one 16-tile chunk
-     under K3, the library route and the plain version.
-The line before the last is a JSON summary of the kernels; the last line is
+     under K3, the library route and the plain version;
+ 12. the research int8 forward's kernels against their plain versions at
+     one 16-tile chunk's shapes: K4 (the fused enc0 chain, bf16 x
+     [16,572,572,1], C 64, bf16 and int8 skip, pool modes 'fused' and
+     'cols'; ragged shapes, C 16 and 24) within BF16_TOL, its int8 skip off
+     by at most 1 on < 1e-3 of values; K5 (concat + requantize) at the four
+     decoder concats and K6a-c (pair, unpair, interleave) at the pair
+     path's shapes, bit for bit, with misaligned and odd-C cases;
+ 13. the research int8 forward at full width through evaluate_batch, on
+     the model trained for 250 steps on the serving tiles and calibrated
+     as evaluate(quant='int8') does (random weights leave most margins
+     within rounding noise), fused (fused_enc0 + fused_concat: K4 1, K5 4,
+     K3 14 launches per chunk) and paired (pair_level0: K6a, K6b, K6c 1
+     each, K3 14): finite metrics; class maps equal to the production int8
+     forward's on >= 0.995 of the pixels; the logits against the same
+     formulation through the kernels' plain versions and (pair) against
+     production within MODEL_TOL of the scale on >= 0.999 of the values;
+ 14. research times: evaluate_batch of both formulations and production
+     int8 'pallas' in turns, a profile of each formulation by kernel group,
+     and K4, K5 and K6a-c per chunk against their plain versions and the
+     library routes they replace.
+The line before the last is a JSON summary of the eight kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -569,6 +590,9 @@ KERNEL_GROUPS = (
     ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu",)),
     ("K2 edt_column_pass", ("edt_column_pass",)),
     ("K3 conv3x3_fused", ("conv3x3_fused",)),
+    ("K4 enc0_chain", ("enc0_chain",)),
+    ("K5 concat_quantize", ("concat_quantize",)),
+    ("K6 interleave_copy", ("interleave_copy",)),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "cutlass", "cudnn",
                                     "dgrad", "wgrad", "winograd", "sm90")),
     ("gather, scatter, index", ("index", "gather", "scatter")),
@@ -912,6 +936,528 @@ def phase11_time_int8(cfg, model, data, qp):
     return total, tiles_s
 
 
+# The research int8 forward (phases 12-14): its kernels' names, the
+# formulations' flags, and each kernel's launches per chunk on its path.
+RESEARCH = {
+    "fused": ({"fused_enc0": True, "fused_concat": True},
+              {"enc0_chain": 1, "concat_quantize": 4, "conv3x3_fused": 14}),
+    "pair": ({"pair_level0": True},
+             {"pair_batch_channels": 1, "unpair_batch_channels": 1, "interleave_pairs": 1,
+              "conv3x3_fused": 14}),
+}
+# The class-map agreement bar of tests/test_quant.py for the fused forward,
+# held for both formulations against the production int8 forward and
+# against themselves through the kernels' plain versions. Like that test,
+# phase 13 serves a briefly trained model: with random weights the int8
+# network turns a one-ulp difference at level 0 into flipped classes on ~5%
+# of the pixels (this script on an H100, PERF.md), because most margins are
+# that thin.
+RESEARCH_AGREE = 0.995
+# The logits are held within MODEL_TOL of their scale on all but 1e-3 of the
+# values: a last-bit float difference flips an int8 rounding now and then,
+# and one flip moves the logits of the pixels downstream of it by up to ~6%
+# of the scale (0.085 at scale 1.47, fused kernels vs their plain versions,
+# on an H100, PERF.md).
+LOGIT_SHARE = 0.999
+SERVE_TRAIN = {"steps": 250, "batch": 4, "lr": 2e-3, "momentum": 0.9}
+# K4's int8 skip against its plain version: off by at most 1 on fewer than
+# this share of values (an f32 last-bit difference of the two sums' orders
+# flips a rint now and then).
+INT8_FLIP_SHARE = 1e-3
+# The decoder concats of one 16-tile chunk: (skip H=W before the crop, H=W
+# after it, C per half), d = 0..3.
+CONCATS = [(568, 392, 64), (280, 200, 128), (136, 104, 256), (64, 56, 512)]
+
+
+def pair_shapes():
+    """The pair path's copies in one chunk: K6a pairs the int8 upconv
+    output [16,392,392,64]; K6b unpairs the pooled bf16 map [8,284,284,128];
+    K6c interleaves the int8 paired skip [8,568,568,128], cropped to 392, with
+    the paired upconv output [8,392,392,128]. (shape, dtype) per input."""
+    full, crop, c = CONCATS[0]
+    half = BATCH_TILES // 2
+    return {"pair_batch_channels": [((BATCH_TILES, crop, crop, c), torch.int8)],
+            "unpair_batch_channels": [((half, full // 2, full // 2, 2 * c), torch.bfloat16)],
+            "interleave_pairs": [((half, full, full, 2 * c), torch.int8),
+                                 ((half, crop, crop, 2 * c), torch.int8)]}
+
+
+def _k6_inputs(name, gen):
+    """Random inputs of `pair_shapes()[name]`; interleave's first cropped."""
+    from tpu_unet_torch.models import center_crop_or_pad
+
+    out = [torch.randint(-100, 100, shape, generator=gen, device=DEVICE).to(dtype)
+           for shape, dtype in pair_shapes()[name]]
+    if name == "interleave_pairs":
+        out[0] = center_crop_or_pad(out[0], out[1].shape[1:3])
+    return out
+
+
+def _research_fns():
+    """{name: wrapper} of the research kernels and K3."""
+    from tpu_unet_torch.ops import fused_level0, interleave
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+
+    return {"enc0_chain": fused_level0.enc0_chain,
+            "concat_quantize": fused_level0.concat_quantize,
+            "pair_batch_channels": interleave.pair_batch_channels,
+            "unpair_batch_channels": interleave.unpair_batch_channels,
+            "interleave_pairs": interleave.interleave_pairs,
+            "conv3x3_fused": conv3x3_fused}
+
+
+def enc0_bound(bsz: int, h: int, w: int, c: int, skip_bytes: int):
+    """K4's bound on bf16 x [bsz, h, w, 1]: x, the weights and biases read
+    once, the skip and the pooled map written once; conv1's operations at
+    the f32 rate and conv2's at the bf16 rate, the larger of the two (they
+    run on different units)."""
+    ho, wo = h - 4, w - 4
+    nbytes = (bsz * h * w * 2 + 9 * c * 2 + 9 * c * c * 2 + 2 * c * 4
+              + bsz * ho * wo * c * skip_bytes + bsz * (ho // 2) * (wo // 2) * c * 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(2 * 9 * c * bsz * (h - 2) * (w - 2) / PEAK_OPS_PER_S["f32"],
+                2 * 9 * c * c * bsz * ho * wo / PEAK_OPS_PER_S["bf16"]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _enc0_args(bsz, h, w, c, gen):
+    x = torch.rand((bsz, h, w, 1), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w1 = (torch.randn((3, 3, 1, c), generator=gen, device=DEVICE) * 0.5).to(torch.bfloat16)
+    b1 = torch.randn((c,), generator=gen, device=DEVICE) * 0.1
+    w2 = (torch.randn((3, 3, c, c), generator=gen, device=DEVICE)
+          * math.sqrt(2 / (9 * c))).to(torch.bfloat16)
+    b2 = torch.randn((c,), generator=gen, device=DEVICE) * 0.1
+    return x, w1, b1, w2, b2
+
+
+def _cat_halves(bsz, full, crop, c, scale, gen):
+    """The decoder's concat inputs: an int8 skip center-cropped from its
+    encoder size (a strided view, as on the path) and a bf16 upconv output
+    spread past the int8 range at `scale`."""
+    from tpu_unet_torch.models import center_crop_or_pad
+
+    skip = torch.randint(-127, 128, (bsz, full, full, c), generator=gen, device=DEVICE,
+                         dtype=torch.int8)
+    u = (torch.rand((bsz, crop, crop, c), generator=gen, device=DEVICE) * 2.6 - 1.3) * 127 * scale
+    return center_crop_or_pad(skip, (crop, crop)), u.to(torch.bfloat16)
+
+
+@torch.inference_mode()
+def phase12_research_kernels():
+    """K4, K5 and K6a-c against their plain versions at one 16-tile chunk's
+    shapes; returns {name: max abs error}."""
+    from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
+                                                 enc0_chain, enc0_chain_plain)
+    from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
+                                               pair_batch_channels, pair_batch_channels_plain,
+                                               unpair_batch_channels,
+                                               unpair_batch_channels_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    errs = dict.fromkeys(["enc0_chain", "concat_quantize", "pair_batch_channels",
+                          "unpair_batch_channels", "interleave_pairs"], 0.0)
+    k4_cases = [((BATCH_TILES, TILE_IN, TILE_IN), 64, m, q)
+                for q in (False, True) for m in ("fused", "cols")]
+    k4_cases += [((2, 50, 86), 64, "fused", True), ((2, 50, 86), 16, "fused", False),
+                 ((3, 36, 44), 16, "cols", True), ((1, 26, 30), 24, "fused", True)]
+    for (bsz, h, w), c, mode, int8_skip in k4_cases:
+        args = _enc0_args(bsz, h, w, c, gen)
+        ref_bf16, ref_pool = enc0_chain_plain(*args)
+        scale = ref_bf16.float().max().item() / 110.0 if int8_skip else 0.0
+        ref_skip = enc0_chain_plain(*args, skip_scale=scale)[0] if int8_skip else ref_bf16
+        skip, pooled = enc0_chain(*args, skip_scale=scale, pool_mode=mode)
+        torch.cuda.synchronize()
+        if skip.dtype != ref_skip.dtype or skip.shape != ref_skip.shape or \
+                pooled.shape != ref_pool.shape:
+            raise AssertionError(f"K4 x[{bsz},{h},{w},1] C {c}: {skip.dtype} "
+                                 f"{tuple(skip.shape)}, {tuple(pooled.shape)}")
+        parts = [("pooled", pooled, ref_pool)] + [("skip", skip, ref_skip)]
+        msg = []
+        for label, got, ref in parts:
+            d = (got.float() - ref.float()).abs()
+            err = d.max().item()
+            if got.dtype == torch.int8:
+                share = (d > 0).float().mean().item()
+                msg.append(f"int8 skip max|err| {err:.0f} on a share {share:.2e}")
+                if not (err <= 1 and share < INT8_FLIP_SHARE):
+                    raise AssertionError(f"K4 int8 skip differs at x[{bsz},{h},{w}] C {c}")
+            else:
+                tol = BF16_TOL * max(ref.float().abs().max().item(), 1.0)
+                msg.append(f"{label} max|err| {err:.3g} (bound {tol:.3g})")
+                errs["enc0_chain"] = max(errs["enc0_chain"], err)
+                if not err <= tol:
+                    raise AssertionError(f"K4 {label} differs at x[{bsz},{h},{w}] C {c}")
+        log(f"phase 12: K4 x[{bsz},{h},{w},1] C {c} pool_mode {mode!r} skip "
+            f"{'int8' if int8_skip else 'bf16'}: " + ", ".join(msg))
+        del args, ref_bf16, ref_pool, ref_skip, skip, pooled
+
+    k5_cases = [(f"dec{d} int8 || bf16", (BATCH_TILES, full, crop, c), True)
+                for d, (full, crop, c) in enumerate(CONCATS)]
+    k5_cases += [("bf16 || bf16", (BATCH_TILES, *CONCATS[1]), False),
+                 ("C 24, int8 || bf16", (2, 40, 30, 24), True),
+                 ("C 40, bf16 || bf16", (2, 20, 18, 40), False)]
+    for label, (bsz, full, crop, c), int8_skip in k5_cases:
+        sk, u = _cat_halves(bsz, full, crop, c, 0.02, gen)
+        a = sk if int8_skip else (u * 0.5)
+        got = concat_quantize(a, u, 0.02)
+        ref = concat_quantize_plain(a, u, 0.02)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        log(f"phase 12: K5 {label} halves [{bsz},{crop},{crop},{c}]: max|err| {err}")
+        if not (got.dtype == torch.int8 and torch.equal(got, ref)):
+            raise AssertionError(f"K5 differs from its plain version at {label}")
+        if not (ref.min().item() == -127 and ref.max().item() == 127):
+            raise AssertionError(f"K5 test values miss the clamps at {label}")
+        del sk, u, a, got, ref
+
+    def ints(shape, dtype, offset=0):
+        buf = torch.randint(-100, 100, (math.prod(shape) + offset,), generator=gen,
+                            device=DEVICE).to(dtype)
+        return buf[offset:].view(shape)
+
+    pp = pair_batch_channels_plain
+    k6_cases = [
+        ("pair_batch_channels", "the pair path's shape",
+         lambda: (pair_batch_channels, pp, _k6_inputs("pair_batch_channels", gen))),
+        ("unpair_batch_channels", "the pair path's shape",
+         lambda: (unpair_batch_channels, unpair_batch_channels_plain,
+                  _k6_inputs("unpair_batch_channels", gen))),
+        ("interleave_pairs", "the pair path's shapes, the first a cropped view",
+         lambda: (interleave_pairs, interleave_pairs_plain,
+                  _k6_inputs("interleave_pairs", gen))),
+        ("pair_batch_channels", "bf16 [4,20,30,5] (byte copies)",
+         lambda: (pair_batch_channels, pp, (ints((4, 20, 30, 5), torch.bfloat16),))),
+        ("unpair_batch_channels", "int8 [2,9,11,128] off its alignment by 3",
+         lambda: (unpair_batch_channels, unpair_batch_channels_plain,
+                  (ints((2, 9, 11, 128), torch.int8, offset=3),))),
+        ("interleave_pairs", "bf16 [2,7,9,6] (byte copies)",
+         lambda: (interleave_pairs, interleave_pairs_plain,
+                  (ints((2, 7, 9, 6), torch.bfloat16), ints((2, 7, 9, 6), torch.bfloat16)))),
+    ]
+    for name, label, make in k6_cases:
+        fn, plain, args = make()
+        got = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        log(f"phase 12: K6 {name} {label} {[list(a.shape) for a in args]}: equal "
+            f"{torch.equal(got, ref)}")
+        if not (got.dtype == ref.dtype and torch.equal(got, ref)):
+            raise AssertionError(f"K6 {name} differs from its plain version at {label}")
+        del args, got, ref
+    log(f"phase 12: ok, K5 and K6a-c bit-exact (tolerance 0); K4's bf16 maps within "
+        f"{BF16_TOL} of their scale, its int8 skip off by at most 1 on < "
+        f"{INT8_FLIP_SHARE} of values")
+    return errs
+
+
+def _research_engine(model, qp, flags):
+    """(ResearchQuantInference under `flags`, with none the production int8
+    forward; its TileInference)."""
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.infer.quant_research import ResearchQuantInference
+
+    qi = ResearchQuantInference(qp, impl="pallas", device=DEVICE, **flags)
+    return qi, TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT, apply_fn=qi.apply)
+
+
+@contextlib.contextmanager
+def _plain_research_kernels():
+    """The research forward with each of K4, K5 and K6a-c swapped for its
+    plain version (which runs on CUDA tensors too): the same formulation,
+    without the kernels."""
+    from tpu_unet_torch.infer import quant_research
+    from tpu_unet_torch.ops import fused_level0, interleave
+
+    plain = {
+        "enc0_chain": lambda *a, skip_scale=0.0, **_: fused_level0.enc0_chain_plain(
+            *a, skip_scale=skip_scale),
+        "concat_quantize": fused_level0.concat_quantize_plain,
+        "pair_batch_channels": interleave.pair_batch_channels_plain,
+        "unpair_batch_channels": interleave.unpair_batch_channels_plain,
+        "interleave_pairs": interleave.interleave_pairs_plain,
+    }
+    saved = {name: getattr(quant_research, name) for name in plain}
+    try:
+        for name, fn in plain.items():
+            setattr(quant_research, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(quant_research, name, fn)
+
+
+def _logit_diff(got, ref):
+    """(max |got - ref|, the scale max |ref|, share of logits within
+    MODEL_TOL x scale, share of equal argmax, share of equal argmax among
+    the pixels whose ref top-2 margin exceeds twice the largest difference,
+    share of such pixels)."""
+    d = (got - ref).abs()
+    err, scale = d.max().item(), ref.abs().max().item()
+    same = got.argmax(-1) == ref.argmax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    return (err, scale, (d <= MODEL_TOL * scale).float().mean().item(),
+            same.float().mean().item(),
+            same[decided].float().mean().item() if decided.any() else 1.0,
+            decided.float().mean().item())
+
+
+def trained_serving_model(cfg, data):
+    """The full-width model (seed 0) trained for SERVE_TRAIN["steps"] steps
+    on the serving set's own 16 tiles, as tests/test_quant.py's
+    `trained_tiny` is trained before its agreement bars (SGD, class-balance
+    weights; through cuDNN), then calibrated as evaluate(quant='int8')
+    calibrates. Returns (the model under conv_impl='pallas', its
+    QuantParams)."""
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.infer.quant import build_quant_inference, calibration_batch
+    from tpu_unet_torch.losses.bce import weighted_bce_with_logits
+    from tpu_unet_torch.losses.weights import class_balance
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.pad import reflect_pad
+
+    train = UNet(dataclasses.replace(cfg, conv_impl="xla"),
+                 generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    engine = TileInference(train, IMAGE, IMAGE, tile_out=TILE_OUT)
+    p = engine.plan
+    tiles = engine._flat_tiles(engine._on_device(data.images, torch.float32))
+    labels = torch.from_numpy((data.targets > 127).astype(np.float32)).to(DEVICE)
+    # the labels reflected as the input tiles are, cut at the tiles' outputs
+    canvas = reflect_pad(labels, ((0, p.canvas_h - p.image_h), (0, p.canvas_w - p.image_w)))
+    to_h, to_w = p.tile_out_hw
+    gt = torch.stack([canvas[:, y:y + to_h, x:x + to_w] for y, x in p.out_origins], dim=1)
+    gt = gt.reshape(-1, to_h, to_w).round().long()
+    opt = torch.optim.SGD(train.parameters(), lr=SERVE_TRAIN["lr"],
+                          momentum=SERVE_TRAIN["momentum"])
+    n, b = tiles.shape[0], SERVE_TRAIN["batch"]
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(SERVE_TRAIN["steps"]):
+        idx = [(step * b + k) % n for k in range(b)]
+        loss = weighted_bce_with_logits(train(tiles[idx]), gt[idx], class_balance(gt[idx]))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = torch.stack(losses).cpu().tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"serving-model training diverged: {losses}")
+    model = UNet(cfg).to(DEVICE)
+    model.load_state_dict(train.state_dict())
+    qp = build_quant_inference(model, calibration_batch(list(data.images)), impl="pallas").qp
+    with torch.inference_mode():
+        logits = model(tiles)
+    top2 = logits.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).median().item()
+    log(f"phase 13: trained the serving model {SERVE_TRAIN} in {time.perf_counter() - t0:.1f} "
+        f"s: loss {losses[0]:.4f} -> {losses[-1]:.4f}; bf16 logits' median top-2 margin "
+        f"{margin:.3f}")
+    del train, opt, tiles
+    return model, qp
+
+
+def phase13_serve_research(cfg, data):
+    """The research int8 forward at full width through evaluate_batch, in
+    both formulations, on a briefly trained model: launches per chunk and
+    finite metrics; class maps against the production int8 forward's; the
+    logits of the chunk against the same formulation through the kernels'
+    plain versions and against the production forward. Returns (model, its
+    QuantParams, {formulation: launches})."""
+    model, qp = trained_serving_model(cfg, data)
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+    prod_qi, prod = _research_engine(model, qp, {})
+    n_tiles = len(data) * prod.plan.num_tiles
+    n_chunks = -(-n_tiles // prod.batch_tiles)
+    _, prod_preds = prod.evaluate_batch(images, lab)
+    tiles = prod._flat_tiles(prod._on_device(data.images, torch.float32))
+    prod_logits = prod_qi.apply(tiles)
+    fns = _research_fns()
+    launches, failed = {}, []
+    for key, (flags, want) in RESEARCH.items():
+        qi, engine = _research_engine(model, qp, flags)
+        for fn in fns.values():
+            fn.launches = 0
+        ms, preds = engine.evaluate_batch(images, lab)
+        torch.cuda.synchronize()
+        launches[key] = {name: fn.launches for name, fn in fns.items() if fn.launches}
+        agree = (preds == prod_preds).float().mean().item()
+        ms = ms.cpu().numpy()
+        log(f"phase 13: research {key} {flags}: evaluate_batch of {n_tiles} tiles in "
+            f"{n_chunks} chunk(s): launches {launches[key]}; (iou, pixel error) "
+            f"{ms.tolist()}; class maps equal the production int8 forward's on {agree:.6f} "
+            f"of the pixels")
+        if launches[key] != {name: n * n_chunks for name, n in want.items()}:
+            failed.append(f"{key}: launches {launches[key]}, want {want} x {n_chunks}")
+        if not (np.isfinite(ms[:, 1]).all() and agree >= RESEARCH_AGREE):
+            failed.append(f"{key}: metrics {ms.tolist()}, agreement {agree}")
+        logits = qi.apply(tiles)
+        with _plain_research_kernels():
+            plain_logits = qi.apply(tiles)
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all():
+            failed.append(f"{key}: non-finite logits")
+        for label, ref in (("the same formulation through the plain versions", plain_logits),
+                           ("the production int8 forward", prod_logits)):
+            err, scale, within, same, same_decided, decided = _logit_diff(logits, ref)
+            log(f"phase 13: {key} logits on {tiles.shape[0]} tiles vs {label}: max|err| "
+                f"{err:.4g} (scale {scale:.4g}); within {MODEL_TOL} x scale on {within:.6f} "
+                f"(bar {LOGIT_SHARE}); argmax equal on {same:.6f} (bar {RESEARCH_AGREE}), and "
+                f"on {same_decided:.6f} of the {decided:.6f} whose margin exceeds 2 x max|err|")
+            # the fused formulation rounds level 0 elsewhere than production
+            # (the int8 skip from the f32 conv output, the concat's multiply by
+            # the reciprocal scale): its logits' distance is reported
+            exact = not (key == "fused" and ref is prod_logits)
+            if not ((within >= LOGIT_SHARE or not exact) and same >= RESEARCH_AGREE
+                    and same_decided == 1.0):
+                failed.append(f"{key} logits vs {label}")
+    if failed:
+        raise AssertionError(f"phase 13 failed: {failed}")
+    log("phase 13: ok")
+    return model, qp, launches
+
+
+def _per_chunk(cases):
+    """{'kernel'|'plain'|'library': ms summed over `cases` of (kernel, plain,
+    library) callables}, each timed with CUDA events after a warm-up."""
+    total = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    for fns in cases:
+        for key, fn, reps in zip(total, fns, (10, 3, 10)):
+            total[key] += _time_ms(fn, reps)
+    return total
+
+
+def phase14_time_research(model, data, qp):
+    """tiles/s of the two formulations and of production int8 'pallas', in
+    turns; each research kernel's ms per chunk against its plain version and
+    the library route it replaces; returns (tiles/s, {name: times})."""
+    from tpu_unet_torch.models.unet import _max_pool2
+    from tpu_unet_torch.ops.conv_tiles import quantize_activations
+    from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
+                                                 enc0_chain, enc0_chain_plain)
+    from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
+                                               pair_batch_channels, pair_batch_channels_plain,
+                                               unpair_batch_channels,
+                                               unpair_batch_channels_plain)
+
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+    engines = {"int8 'pallas'": _research_engine(model, qp, {})[1]}
+    for key, (flags, _) in RESEARCH.items():
+        engines[f"research {key}"] = _research_engine(model, qp, flags)[1]
+    n_tiles = len(data) * engines["int8 'pallas'"].plan.num_tiles
+    times = {k: [] for k in engines}
+    for key in list(engines) + list(reversed(engines)):
+        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+    tiles_s = {}
+    for key, ts in times.items():
+        ms = sum(ts) / len(ts)
+        tiles_s[key] = n_tiles / (ms / 1e3)
+        log(f"phase 14: evaluate_batch {key}: {ms:.2f} ms for {n_tiles} tiles of "
+            f"{TILE_IN}^2 = {tiles_s[key]:.1f} tiles/s (runs {[round(t, 3) for t in ts]})")
+    n = 3
+    for key in list(engines)[1:]:
+        window, busy, groups, top = _profile(
+            lambda r: engines[key].evaluate_batch(images, lab), n)
+        tiles_s[f"{key} profiled_idle_share"] = 1.0 - busy / window
+        log(f"phase 14: profile of {n} evaluate_batch calls {key}: window {window / n:.3f} "
+            f"ms/call, device busy {busy / n:.3f} ms/call, idle share "
+            f"{1.0 - busy / window:.4f}; by group (ms/call): "
+            + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
+        for name, ms in top:
+            log(f"phase 14:   {ms / n:9.3f} ms/call  {name[:110]}")
+    del engines
+
+    prod_qi = _research_engine(model, qp, {})[0]
+    s_cat = qp.scales["dec0_conv1:cat"]
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    out = {}
+    with torch.inference_mode():
+        x = torch.rand((BATCH_TILES, TILE_IN, TILE_IN, 1), generator=gen,
+                       device=DEVICE).to(torch.bfloat16)
+        w = [t.to(DEVICE, dt) for n in ("enc0_conv1", "enc0_conv2")
+             for t, dt in zip(qp.fconv[n], (torch.bfloat16, torch.float32))]
+
+        def level0_library():
+            """The production level 0: two float convs (cuDNN, TF32 on bf16
+            values), the int8 capture of the skip and the pool."""
+            h2 = prod_qi._conv_f("enc0_conv2", prod_qi._conv_f("enc0_conv1", x))
+            return prod_qi._quantize(h2, s_cat), _max_pool2(h2)
+
+        t = _per_chunk([(lambda: enc0_chain(x, *w, skip_scale=s_cat),
+                         lambda: enc0_chain_plain(x, *w, skip_scale=s_cat),
+                         level0_library)])
+        t["bound"], t["bound_by"] = enc0_bound(BATCH_TILES, TILE_IN, TILE_IN,
+                                               w[0].shape[-1], 1)
+        out["enc0_chain"] = t
+        del x, w
+
+        cases, nbytes, nq = [], 0, 0
+        halves = [_cat_halves(BATCH_TILES, full, crop, c, s_cat, gen)
+                  for full, crop, c in CONCATS]
+        for sk, u in halves:
+            cases.append((lambda sk=sk, u=u: concat_quantize(sk, u, s_cat),
+                          lambda sk=sk, u=u: concat_quantize_plain(sk, u, s_cat),
+                          lambda sk=sk, u=u: torch.cat(
+                              [sk, quantize_activations(u, s_cat)], dim=-1)))
+            nbytes += sk.numel() * 1 + u.numel() * 2 + 2 * u.numel()
+            nq += u.numel()
+        t = _per_chunk(cases)
+        t["bound"], t["bound_by"] = bound(nbytes, 2 * nq, "f32")
+        out["concat_quantize"] = t
+        del cases, halves
+
+        for name, fn, plain in (
+                ("pair_batch_channels", pair_batch_channels, pair_batch_channels_plain),
+                ("unpair_batch_channels", unpair_batch_channels, unpair_batch_channels_plain),
+                ("interleave_pairs", interleave_pairs, interleave_pairs_plain)):
+            args = _k6_inputs(name, gen)
+            # the plain version is the library route: one torch.cat of slices
+            t = _per_chunk([(lambda: fn(*args), lambda: plain(*args), lambda: plain(*args))])
+            moved = 2 * sum(a.numel() * a.element_size() for a in args)
+            t["bound"], t["bound_by"] = bound(moved, 0, "f32")
+            out[name] = t
+            del args
+    for name, t in out.items():
+        log(f"phase 14: {name} per {BATCH_TILES}-tile chunk: kernel {t['kernel']:.4f} ms, "
+            f"plain {t['plain']:.4f} ms, library {t['library']:.4f} ms, bound "
+            f"{t['bound']:.4f} ms ({t['bound_by']})")
+    return tiles_s, out
+
+
+# (name, source, the TPU kernel it replaces, the formulation it runs on)
+RESEARCH_KERNELS = [
+    ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
+     "fused"),
+    ("concat_quantize", "tpu_unet_torch/csrc/concat_quantize.cu",
+     "tpu_unet/ops/fused_level0.py:273", "fused"),
+    ("pair_batch_channels", "tpu_unet_torch/csrc/interleave.cu",
+     "tpu_unet/ops/interleave.py:42", "pair"),
+    ("unpair_batch_channels", "tpu_unet_torch/csrc/interleave.cu",
+     "tpu_unet/ops/interleave.py:73", "pair"),
+    ("interleave_pairs", "tpu_unet_torch/csrc/interleave.cu",
+     "tpu_unet/ops/interleave.py:101", "pair"),
+]
+
+
+def research_kernel_lines(errs, launches, times, tiles_s):
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[path][name],
+        "max_abs_err": errs[name],
+        "ms": times[name]["kernel"],
+        "plain_ms": times[name]["plain"],
+        "bound_ms": times[name]["bound"],
+        "bound_by": times[name]["bound_by"],
+        "library_ms": times[name]["library"],
+        "launches_by_path": {f"serve_int8_research_{path}": launches[path][name]},
+        "evaluate_tiles_per_s": tiles_s,
+    } for name, source, replaces, path in RESEARCH_KERNELS]
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -932,6 +1478,10 @@ def main() -> None:
     k3_err, k3_bf16_err = phase9_k3_vs_plain(cfg)
     model, data, qp, int8_launches = phase10_serve_int8(cfg)
     k3_total, int8_tiles_s = phase11_time_int8(cfg, model, data, qp)
+    del model
+    research_errs = phase12_research_kernels()
+    model, qp, research_launches = phase13_serve_research(cfg, data)
+    research_tiles_s, research_ms = phase14_time_research(model, data, qp)
     del model
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
     k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
@@ -979,9 +1529,13 @@ def main() -> None:
         "bound_by": k3_total["bound_by"],
         "library_ms": k3_total["library"],
         "bf16_max_abs_err": k3_bf16_err,
-        "launches_by_path": {"serve_int8": int8_launches},
+        "launches_by_path": {"serve_int8": int8_launches,
+                             **{f"serve_int8_research_{k}": v["conv3x3_fused"]
+                                for k, v in research_launches.items()}},
         "evaluate_tiles_per_s": int8_tiles_s,
-    }], "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err}))
+    }] + research_kernel_lines(research_errs, research_launches, research_ms,
+                               research_tiles_s),
+        "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

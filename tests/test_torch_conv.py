@@ -101,9 +101,12 @@ def test_wrapper_rejects_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = _build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["conv3x3_bias_relu.cu",
+    assert [os.path.basename(s) for s in srcs] == ["concat_quantize.cu",
+                                                   "conv3x3_bias_relu.cu",
                                                    "conv3x3_fused.cu",
-                                                   "edt_column_pass.cu"]
+                                                   "edt_column_pass.cu",
+                                                   "enc0_chain.cu",
+                                                   "interleave.cu"]
     path = _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert _build.BUILD_DIR.endswith(os.path.join("build", "tpu_unet_torch"))

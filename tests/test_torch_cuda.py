@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: K1 (fused 3x3 conv + bias + ReLU)
-and its gradient, K2 (the EDT column pass) and K3 (the fused int8/bf16 conv
-of quantized serving). These tests import no JAX
+and its gradient, K2 (the EDT column pass), K3 (the fused int8/bf16 conv
+of quantized serving), and K4, K5 and K6a-c (the fused enc0 chain, the
+fused concat + requantize and the pairing copies of the research int8
+forward). These tests import no JAX
 (the machine with the card has none) and skip without a CUDA device. Run
 them on the card with
 
@@ -18,6 +20,12 @@ from tpu_unet_torch.ops.conv_pallas import (conv3x3_bias_relu,
 from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
                                            conv3x3_int8_xla)
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
+                                             enc0_chain, enc0_chain_plain)
+from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
+                                           pair_batch_channels, pair_batch_channels_plain,
+                                           unpair_batch_channels,
+                                           unpair_batch_channels_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +276,157 @@ def test_quant_inference_kernel_matches_library_route(cuda):
                   "dec0_conv1"):
         got = engines["pallas"].apply(x, stop_after=stage)
         assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage
+
+
+# --- K4, K5, K6a-c: the research int8 forward's kernels -----------------------
+
+def _enc0_inputs(shape, c, x_dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((*shape, 1), generator=g, device=device).to(x_dtype)
+    w1 = (torch.randn((3, 3, 1, c), generator=g, device=device) * 0.5).to(torch.bfloat16)
+    b1 = torch.randn((c,), generator=g, device=device) * 0.1
+    w2 = (torch.randn((3, 3, c, c), generator=g, device=device) * (2 / (9 * c)) ** 0.5
+          ).to(torch.bfloat16)
+    b2 = torch.randn((c,), generator=g, device=device) * 0.1
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("shape,c", [
+    ((2, 36, 44), 64),     # main-path channels, one full tile and edge tiles
+    ((1, 26, 30), 8),      # Ho, Wo not multiples of the 8 x 32 tile
+    ((3, 22, 70), 16),
+    ((1, 14, 40), 24),     # C not a multiple of 16
+])
+@pytest.mark.parametrize("int8_skip", [False, True])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_enc0_chain_kernel_matches_plain(cuda, shape, c, int8_skip, x_dtype):
+    """K4 against its plain version (f32 convs, TF32 off): the bf16 skip and
+    the pooled map within 2e-2 of their scale (the two sum conv1 and conv2
+    in other orders); the int8 skip off by at most 1 on < 1e-3 of values."""
+    args = _enc0_inputs(shape, c, x_dtype, cuda)
+    scale = 0.0
+    if int8_skip:
+        scale = enc0_chain_plain(*args)[0].float().max().item() / 110.0
+    before = enc0_chain.launches
+    skip, pooled = enc0_chain(*args, skip_scale=scale)
+    assert enc0_chain.launches == before + 1
+    rskip, rpooled = enc0_chain_plain(*args, skip_scale=scale)
+    torch.cuda.synchronize()
+    assert skip.dtype == rskip.dtype and skip.shape == rskip.shape
+    assert pooled.dtype == torch.bfloat16 and pooled.shape == rpooled.shape
+    for got, ref in ((skip, rskip), (pooled, rpooled)):
+        d = (got.float() - ref.float()).abs()
+        if got.dtype == torch.int8:
+            assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+            assert 0 < (ref > 0).float().mean() < 1
+        else:
+            assert d.max().item() <= 2e-2 * max(ref.float().abs().max().item(), 1.0)
+
+
+def _halves(shape, device, seed=0):
+    """An int8 skip (inside a larger tensor, cropped as the decoder crops it)
+    and a bf16 upconv output spread past the int8 range at scale 0.02."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, h, w, c = shape
+    big = torch.randint(-127, 128, (b, h + 6, w + 4, c), generator=g, device=device,
+                        dtype=torch.int8)
+    u = ((torch.rand(shape, generator=g, device=device) * 2.6 - 1.3) * 127 * 0.02)
+    return big[:, 3:3 + h, 2:2 + w], u.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 9, 16), (2, 12, 20, 64), (1, 5, 6, 24)])
+def test_concat_quantize_kernel_is_bit_exact(cuda, shape):
+    """K5 against its plain version, tolerance 0: int8 || bf16 with the skip
+    a cropped view, bf16 || bf16, bf16 || int8; C a multiple of 16 (16-byte
+    path) and not (scalar path)."""
+    sk, u = _halves(shape, cuda)
+    assert not sk.is_contiguous()
+    for a, b in ((sk, u), (u, u * 0.5), (u, sk)):
+        before = concat_quantize.launches
+        got = concat_quantize(a, b, 0.02)
+        assert concat_quantize.launches == before + 1
+        ref = concat_quantize_plain(a, b, 0.02)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert ref.min() == -127 and ref.max() == 127
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("c,offset", [(64, 0), (5, 0), (64, 1)])
+def test_interleave_kernels_are_bit_exact(cuda, dtype, c, offset):
+    """K6a-c against their plain versions, tolerance 0: 16-byte copies (C
+    64), byte copies (C 5, or an input off its 16-byte alignment), and a
+    center-cropped view into interleave_pairs."""
+    g = torch.Generator(device=cuda).manual_seed(c + offset)
+    n = 4 * 6 * 10 * c
+    buf = torch.randint(-100, 100, (n + offset,), generator=g, device=cuda).to(dtype)
+    x = buf[offset:].view(4, 6, 10, c)
+    counts = (pair_batch_channels.launches, unpair_batch_channels.launches,
+              interleave_pairs.launches)
+    p = pair_batch_channels(x)
+    assert torch.equal(p, pair_batch_channels_plain(x))
+    u = unpair_batch_channels(p)
+    assert torch.equal(u, unpair_batch_channels_plain(p)) and torch.equal(u, x)
+    big = pair_batch_channels_plain(
+        torch.randint(-100, 100, (4, 10, 14, c), generator=g, device=cuda).to(dtype))
+    view = big[:, 2:8, 2:12]
+    got = interleave_pairs(view, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, interleave_pairs_plain(view, p))
+    assert (pair_batch_channels.launches, unpair_batch_channels.launches,
+            interleave_pairs.launches) == tuple(k + 1 for k in counts)
+
+
+def test_research_kernels_refuse_what_they_do_not_take(cuda):
+    args = list(_enc0_inputs((1, 20, 24), 8, torch.bfloat16, cuda))
+    counts = (enc0_chain.launches, concat_quantize.launches, interleave_pairs.launches)
+    for c in (12, 72):                       # not a multiple of 8; past the kernel's 64
+        with pytest.raises(ValueError, match="multiple of 8"):
+            enc0_chain(*_enc0_inputs((1, 20, 24), c, torch.bfloat16, cuda))
+    with pytest.raises(ValueError):
+        enc0_chain(*args[:3], args[3], args[4].cpu())
+    with pytest.raises(ValueError, match="quantized skip"):
+        enc0_chain(*args, skip_scale=0.1, pool_mode="none")
+    a = torch.zeros((1, 4, 4, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        concat_quantize(a, a[:, :3], 0.1)
+    with pytest.raises(ValueError):
+        concat_quantize(a, a.cpu(), 0.1)
+    with pytest.raises(TypeError):
+        interleave_pairs(a, a.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        pair_batch_channels(a)                # odd batch
+    assert (enc0_chain.launches, concat_quantize.launches,
+            interleave_pairs.launches) == counts
+
+
+@pytest.mark.parametrize("flags,launches", [
+    ({"fused_enc0": True, "fused_concat": True},
+     {"enc0_chain": 1, "concat_quantize": 4}),
+    ({"pair_level0": True},
+     {"pair_batch_channels": 1, "unpair_batch_channels": 1, "interleave_pairs": 1}),
+])
+def test_research_forward_kernel_matches_library_route(cuda, flags, launches):
+    """A narrow research int8 engine on the card: impl='pallas' (K3 and the
+    research kernels) equals impl='xla' (the int8 library route and the same
+    research kernels) bit for bit, with each kernel's launches per forward."""
+    from tpu_unet_torch.infer.quant import (add_concat_scales, calibrate,
+                                            default_quant_names, prepare_quant_params)
+    from tpu_unet_torch.infer.quant_research import ResearchQuantInference
+    from tpu_unet_torch.ops import fused_level0, interleave
+
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand((2, 188, 188, 1), device=cuda)
+    scales = add_concat_scales(cfg, calibrate(model, x))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16))
+    fns = {name: getattr(fused_level0, name, None) or getattr(interleave, name)
+           for name in launches}
+    before = {name: fn.launches for name, fn in fns.items()}
+    k3 = conv3x3_fused.launches
+    logits = ResearchQuantInference(qp, impl="pallas", device=cuda, **flags).apply(x)
+    assert conv3x3_fused.launches == k3 + 14
+    assert {name: fn.launches - before[name] for name, fn in fns.items()} == launches
+    ref = ResearchQuantInference(qp, impl="xla", device=cuda, **flags).apply(x)
+    assert logits.shape == (2, 4, 4, 2) and torch.isfinite(logits).all()
+    assert torch.equal(logits, ref)

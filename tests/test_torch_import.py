@@ -1,6 +1,7 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
 interpreter imports every module of tpu_unet_torch, runs a tiny evaluate()
-(float and int8) and a tiny Trainer.fit(), and finds no `jax`, `triton` or
+(float and int8), a tiny research int8 forward (fused and paired) and a
+tiny Trainer.fit(), and finds no `jax`, `triton` or
 `tpu_unet` module loaded and no kernel library built."""
 
 import ast
@@ -34,6 +35,16 @@ qpath = os.path.join(tempfile.mkdtemp(), "qp.npz")
 wide = UNet(ModelConfig(base_width=8, conv_impl="pallas"))
 result = evaluate(wide, data, tile_out=36, verbose=False, quant="int8", quant_path=qpath)
 assert os.path.exists(qpath) and result["num_images"] == 2, result
+import torch
+from tpu_unet_torch.infer.quant import (add_concat_scales, calibrate, default_quant_names,
+                                        prepare_quant_params)
+from tpu_unet_torch.infer.quant_research import ResearchQuantInference
+x = torch.rand((2, 188, 188, 1), generator=torch.Generator().manual_seed(0))
+qp = prepare_quant_params(wide.cfg, wide, add_concat_scales(wide.cfg, calibrate(wide, x)),
+                          default_quant_names(wide.cfg, 16))
+for flags in ({"fused_enc0": True, "fused_concat": True}, {"pair_level0": True}):
+    y = ResearchQuantInference(qp, **flags).apply(x)
+    assert y.shape == (2, 4, 4, 2) and bool(torch.isfinite(y).all()), flags
 ds = DatasetConfig(name="s", crop=20, metric="iou", weight_mode="distance",
                    goal=1.0, goal_direction="max")
 history = Trainer(ds, ModelConfig(base_width=2, conv_impl="pallas"),

@@ -246,8 +246,9 @@ class QuantInference:
                 self._head = (k[0, 0].to(dev), b.to(dev))        # [C, O]
             else:
                 self._fconv[name] = (k.permute(3, 2, 0, 1).contiguous().to(dev), b.to(dev))
-        self._epilogues: Dict[Tuple[str, float], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._epilogues: Dict[Tuple[str, float, bool], Tuple[torch.Tensor, torch.Tensor]] = {}
         self._scalars: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
+        self._paired: Dict[str, object] = {}
 
     # -- primitives ---------------------------------------------------------
 
@@ -268,35 +269,61 @@ class QuantInference:
     def _quantize(self, v: torch.Tensor, s: float) -> torch.Tensor:
         return quantize_activations(v, self._scalar(s))
 
-    def _epilogue_vectors(self, name: str, s_in: float):
+    def _epilogue_vectors(self, name: str, s_in: float, paired: bool = False):
         """alpha = s_in * s_w / s_out and beta = bias / s_out in f32,
-        computed on the CPU as JAX computes them, then kept on the device."""
-        key = (name, s_in)
+        computed on the CPU as JAX computes them, then kept on the device;
+        each twice over (`paired`) for the block-diagonal kernel."""
+        key = (name, s_in, paired)
         if key not in self._epilogues:
             _, s_w, bias = self.qp.qconv[name]
             s_out = self.qp.scales[name]
             alpha = (s_in * s_w / s_out).float()
             beta = (bias / s_out).float()
+            if paired:
+                alpha, beta = torch.cat([alpha, alpha]), torch.cat([beta, beta])
             self._epilogues[key] = (alpha.to(self.device), beta.to(self.device))
         return self._epilogues[key]
 
-    def _conv_f(self, name: str, v: torch.Tensor) -> torch.Tensor:
-        k, b = self._fconv[name]
+    @staticmethod
+    def _blockdiag(k: torch.Tensor, ci_dim: int = -2, co_dim: int = -1) -> torch.Tensor:
+        """`k` with its input and output channel dims doubled and `k` on the
+        diagonal: a conv of the channel-paired tensor (two images side by
+        side in the channels) that keeps the images independent."""
+        z = torch.zeros_like(k)
+        return torch.cat([torch.cat([k, z], co_dim), torch.cat([z, k], co_dim)], ci_dim)
+
+    def _paired_weights(self, name: str):
+        """The block-diagonal form of `name`'s weights on the device, made
+        once: the int8 HWIO kernel of a quantized conv, else (kernel, bias)
+        of a float conv (OIHW) or of the head ([C, O])."""
+        if name not in self._paired:
+            if name in self.qp.qnames:
+                self._paired[name] = self._blockdiag(self._wq[name])
+            else:
+                k, b = self._head if name == "head" else self._fconv[name]
+                dims = (0, 1) if name == "head" else (1, 0)
+                self._paired[name] = (self._blockdiag(k, *dims), torch.cat([b, b]))
+        return self._paired[name]
+
+    def _conv_f(self, name: str, v: torch.Tensor, paired: bool = False) -> torch.Tensor:
+        k, b = self._paired_weights(name) if paired else self._fconv[name]
         with _tf32_for_bf16_values():
             y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
         return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
-    def _conv(self, name: str, v: torch.Tensor, s_in):
+    def _conv(self, name: str, v: torch.Tensor, s_in, paired: bool = False):
         """One 3x3 conv + ReLU. (v, s_in) -> (v, s_out); s None = float
-        (bf16), a float = int8 at that scale."""
+        (bf16), a float = int8 at that scale. `paired`: v holds two batch
+        images side by side in the channels, and the conv runs with the
+        block-diagonal kernel."""
         qp = self.qp
         if name not in qp.qnames:
-            return self._conv_f(name, self._deq(v, s_in)), None
+            return self._conv_f(name, self._deq(v, s_in), paired=paired), None
         if s_in is None:
             s_in = qp.scales[self._input_scale_key(name)]
             v = self._quantize(v, s_in)
-        alpha, beta = self._epilogue_vectors(name, s_in)
-        w_q = self._wq[name]
+        alpha, beta = self._epilogue_vectors(name, s_in, paired)
+        w_q = self._paired_weights(name) if paired else self._wq[name]
         v = v.contiguous()
         if self.layer_impl.get(name, self.impl) == "xla":
             return conv3x3_int8_xla(v, w_q, alpha, beta, out_kind="int8"), qp.scales[name]

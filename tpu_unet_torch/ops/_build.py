@@ -129,6 +129,13 @@ def load_library() -> ctypes.CDLL:
         lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                             i, p]
         lib.edt_column_pass_f32.restype = i
+        ll, f = ctypes.c_longlong, ctypes.c_float
+        lib.enc0_chain.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
+        lib.enc0_chain.restype = i
+        lib.concat_quantize.argtypes = [p, p, p, ll, ll, ll, ll, i, i, i, i, i, i, f, i, p]
+        lib.concat_quantize.restype = i
+        lib.interleave_copy.argtypes = [i, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p]
+        lib.interleave_copy.restype = i
         lib.tpu_unet_torch_cuda_error_string.argtypes = [i]
         lib.tpu_unet_torch_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
