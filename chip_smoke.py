@@ -63,7 +63,22 @@ Phases, each printing its own lines:
      int8 'pallas' in turns, a profile of each formulation by kernel group,
      and K4, K5 and K6a-c per chunk against their plain versions and the
      library routes they replace.
-The line before the last is a JSON summary of the eight kernels; the last line is
+ 15. the fused k x k int8 conv of the phase-packed level 0 against its plain
+     version, bit for bit, at the path's packed shapes (batch 2), a 3x3
+     shape through conv_rows3_col, ragged, odd-Cin and misaligned cases, and
+     against the library route at the full 16-tile packed shapes;
+ 16. int8-phase serving: evaluate(quant='int8-phase', quant_path=...) on the
+     model phase 13 trained: the k x k kernel 2 and K3 13 launches per chunk
+     under 'pallas', none under 'xla', the .npz round trip, every stage
+     'pallas' vs 'xla' bit for bit, class maps equal to the production int8
+     forward's on >= 0.995 of the pixels;
+ 17. int8-phase times: evaluate_batch under int8-phase 'pallas' and 'xla'
+     and production int8 'pallas' in turns and a profile, the k x k kernel
+     per chunk against its plain version and the library route, a DIC-HeLa
+     train step of the phase-packed model against the plain one ('xla'),
+     and the deep-shootout probe (python -m tpu_unet_torch.probes.deep_shootout)
+     at batch 16.
+The line before the last is a JSON summary of the nine kernels; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -593,6 +608,7 @@ KERNEL_GROUPS = (
     ("K4 enc0_chain", ("enc0_chain",)),
     ("K5 concat_quantize", ("concat_quantize",)),
     ("K6 interleave_copy", ("interleave_copy",)),
+    ("k x k conv_kxk_fused", ("conv_kxk_fused",)),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "cutlass", "cudnn",
                                     "dgrad", "wgrad", "winograd", "sm90")),
     ("gather, scatter, index", ("index", "gather", "scatter")),
@@ -628,21 +644,52 @@ def _profile(step, n: int):
     return window, sum(kernels.values()), groups, top
 
 
-def phase8_time(cfg):
-    from tpu_unet_torch.config import DATASETS, OptimConfig
+def _train_parts():
+    """What a DIC-HeLa train step reads: (augmentation pipeline, training
+    set, its arrays on the card, the distance weight-map function)."""
+    from tpu_unet_torch.config import DATASETS
     from tpu_unet_torch.data.augment import AugmentPipeline
-    from tpu_unet_torch.losses.bce import weighted_bce_with_logits
     from tpu_unet_torch.losses.weights import make_weight_fn
-    from tpu_unet_torch.models import UNet, center_crop_or_pad
-    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
-    from tpu_unet_torch.train import make_optimizer
 
-    ds = DATASETS["DIC-C2DH-HeLa"]
-    pipe = AugmentPipeline(ds.augment())
     data = _train_data()
     arrays = [torch.from_numpy(a).to(DEVICE) for a in (
         data.images, data.targets, data.crop_log_probs, data.crop_pairs)]
-    weight_fn = make_weight_fn("distance")
+    return (AugmentPipeline(DATASETS["DIC-C2DH-HeLa"].augment()), data, arrays,
+            make_weight_fn("distance"))
+
+
+def _train_step(model, opt, parts, r, mark=lambda k, i: None):
+    """Step `r` of the train loop, as `make_train_step` runs it; `mark(part,
+    0 or 1)` around its four parts (augment, weights, fwd_bwd, optimizer)."""
+    from tpu_unet_torch.losses.bce import weighted_bce_with_logits
+    from tpu_unet_torch.models import center_crop_or_pad
+
+    pipe, data, arrays, weight_fn = parts
+    gen = torch.Generator(device=DEVICE).manual_seed(100 + r)
+    mark("augment", 0)
+    inp, gt = pipe(*arrays, np.array([2 * r, 2 * r + 1]) % len(data), gen)
+    mark("augment", 1)
+    mark("weights", 0)
+    with torch.no_grad():
+        w = weight_fn(gt)
+    mark("weights", 1)
+    mark("fwd_bwd", 0)
+    opt.zero_grad(set_to_none=True)
+    logits = center_crop_or_pad(model(inp), gt.shape[1:3])
+    weighted_bce_with_logits(logits, gt, w).backward()
+    mark("fwd_bwd", 1)
+    mark("optimizer", 0)
+    opt.step()
+    mark("optimizer", 1)
+
+
+def phase8_time(cfg):
+    from tpu_unet_torch.config import OptimConfig
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+    from tpu_unet_torch.train import make_optimizer
+
+    parts_in = _train_parts()
     models = {}
     for impl in ("pallas", "xla"):
         m = UNet(dataclasses.replace(cfg, conv_impl=impl),
@@ -651,26 +698,8 @@ def phase8_time(cfg):
     parts = ("augment", "weights", "fwd_bwd", "optimizer")
 
     def train_step(impl, r, ev=None):
-        """One step of the train loop, as `make_train_step` runs it, with
-        CUDA events around its four parts when `ev` is given."""
-        model, opt = models[impl]
         mark = (lambda k, i: ev[k][i].record()) if ev else (lambda k, i: None)
-        gen = torch.Generator(device=DEVICE).manual_seed(100 + r)
-        mark("augment", 0)
-        inp, gt = pipe(*arrays, np.array([2 * r, 2 * r + 1]) % len(data), gen)
-        mark("augment", 1)
-        mark("weights", 0)
-        with torch.no_grad():
-            w = weight_fn(gt)
-        mark("weights", 1)
-        mark("fwd_bwd", 0)
-        opt.zero_grad(set_to_none=True)
-        logits = center_crop_or_pad(model(inp), gt.shape[1:3])
-        weighted_bce_with_logits(logits, gt, w).backward()
-        mark("fwd_bwd", 1)
-        mark("optimizer", 0)
-        opt.step()
-        mark("optimizer", 1)
+        _train_step(*models[impl], parts_in, r, mark)
 
     steps = {}
     reps = 6
@@ -737,16 +766,17 @@ def int8_shapes(cfg):
     return shapes
 
 
-def _k3_inputs(shape, cout, dtype, gen, offset=0):
-    """int8 x and w with f32 alpha and beta that spread the outputs over
-    [0, 127] (or bf16 x and w, alpha 1). `offset` bytes put x off its 16-byte
-    alignment, which the kernel takes on its scalar load path."""
+def _k3_inputs(shape, cout, dtype, gen, offset=0, k=3):
+    """int8 x and k x k w with f32 alpha and beta that spread the outputs
+    over [0, 127] (or bf16 x and 3x3 w, alpha 1). `offset` bytes put x off
+    its 16-byte alignment, which the kernels take on their scalar load
+    path."""
     cin = shape[-1]
     if dtype == torch.int8:
         buf = torch.randint(-127, 128, (math.prod(shape) + offset,), generator=gen,
                             device=DEVICE, dtype=torch.int8)
         x = buf[offset:].view(shape)
-        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, device=DEVICE,
+        w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device=DEVICE,
                           dtype=torch.int8)
         alpha = torch.rand((cout,), generator=gen, device=DEVICE) * 2e-3 / math.sqrt(cin)
         beta = torch.randn((cout,), generator=gen, device=DEVICE) * 3
@@ -1425,6 +1455,266 @@ def phase14_time_research(model, data, qp):
     return tiles_s, out
 
 
+# The phase-packed level 0 (phases 15-17): `int8-phase` serving runs the
+# packed enc0_conv2 and dec0_conv2 through the fused k x k kernel and 13 of
+# the 14 int8 convs through K3 (the split dec0_conv1 takes the library
+# accumulate), per chunk.
+PHASE_LAUNCHES = {"conv_kxk_fused": 2, "conv3x3_fused": 13}
+
+
+def kxk_shapes(cfg):
+    """(layer, packed input H=W, Cin, Cout) of the two packed 2x2 int8 convs
+    of a 572x572 tile: enc0_conv2 (s2d 286 -> 285 -> 284) and dec0_conv2
+    (packed up0 196 -> 195 -> 194 = 388 / 2)."""
+    c = 4 * cfg.widths[0]
+    return [("enc0_conv2", TILE_IN // 2 - 1, c, c), ("dec0_conv2", TILE_OUT // 2 + 1, c, c)]
+
+
+def kxk_cost(batch: int, s: int, k: int, cin: int, cout: int):
+    """(bytes, operations) of one fused int8 k x k conv of x [batch, s, s,
+    cin]: x, w, alpha and beta read once, the int8 output written once."""
+    so = s - k + 1
+    return (batch * s * s * cin + k * k * cin * cout + 8 * cout + batch * so * so * cout,
+            2 * batch * so * so * k * k * cin * cout)
+
+
+@torch.inference_mode()
+def phase15_kxk_vs_plain(cfg) -> float:
+    """The fused k x k kernel against its plain version, bit for bit, at the
+    path's packed shapes (batch 2), a 3x3 shape through conv_rows3_col,
+    ragged, odd-Cin and misaligned cases; then against the library route at
+    the full 16-tile packed shapes."""
+    from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused_plain,
+                                             conv_rows3_col)
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_int8_xla
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    cases = [(name, 2, (2, s, s, cin), cout, 0) for name, s, cin, cout in kxk_shapes(cfg)]
+    cases += [("3x3 (probe section 1, rows cut)", 3, (2, 34, 762, 128), 128, 0),
+              ("ragged, Cin 24", 2, (1, 9, 13, 24), 40, 0),
+              ("misaligned", 2, (2, 10, 12, 32), 16, 3),
+              ("3x3, K 27", 3, (1, 7, 9, 3), 5, 0)]
+    for label, k, shape, cout, offset in cases:
+        x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, gen, offset, k)
+        fn = conv2x2_fused if k == 2 else conv_rows3_col
+        got = fn(x, w, alpha, beta, cout_tile=min(cout, 256) if k == 2 else None)
+        ref = conv_kxk_fused_plain(x, w, alpha, beta)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        share = (ref > 0).float().mean().item()
+        log(f"phase 15: k x k {label:32s} {k}x{k} x{list(shape)} -> {cout} via "
+            f"{fn.__name__}: max|err| {err} vs plain; nonzero share {share:.3f}")
+        if not (got.dtype == torch.int8 and torch.equal(got, ref)):
+            raise AssertionError(f"the k x k kernel differs from its plain version at {label}")
+        if not 0.0 < share < 1.0:
+            raise AssertionError(f"degenerate k x k test outputs at {label}")
+        del x, w, got, ref
+    for name, s, cin, cout in kxk_shapes(cfg):
+        x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen, k=2)
+        got = conv_rows3_col(x, w, alpha, beta)         # as int8-phase serving calls it
+        lib = conv3x3_int8_xla(x, w, alpha, beta, "int8")
+        torch.cuda.synchronize()
+        log(f"phase 15: k x k {name} x[{BATCH_TILES},{s},{s},{cin}] -> {cout}: equal to the "
+            f"library route {torch.equal(got, lib)}")
+        if not torch.equal(got, lib):
+            raise AssertionError(f"the k x k kernel differs from the library route at {name}")
+        del x, w, got, lib
+    log("phase 15: ok, the k x k kernel bit-exact (tolerance 0) against its plain version "
+        "and the library route")
+    return 0.0
+
+
+def phase16_serve_int8_phase(cfg, model, data, qp):
+    """evaluate(quant='int8-phase', quant_path=...) at full width on the
+    model phase 13 trained: launches per chunk under 'pallas' and 'xla', the
+    .npz round trip, every stage 'pallas' vs 'xla' bit for bit, and class
+    maps against the production int8 forward (`qp`). Returns (the phase
+    QuantParams, {path: launches}, agreement)."""
+    from tpu_unet_torch.infer import TileInference, evaluate
+    from tpu_unet_torch.infer.quant import QuantInference, default_quant_names, load_quant_params
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+
+    fns = {"conv_kxk_fused": conv_kxk_fused, "conv3x3_fused": conv3x3_fused}
+    xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
+    xla.load_state_dict(model.state_dict())
+    engine = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT)
+    n_tiles = len(data) * engine.plan.num_tiles
+    n_chunks = -(-n_tiles // engine.batch_tiles)
+    qpath = os.path.join(HERE, "build", "chip_smoke_int8_phase.npz")
+    if os.path.exists(qpath):
+        os.remove(qpath)
+    results, launches, failed = [], {}, []
+    for run, m in (("'pallas', calibrated and saved", model),
+                   ("'pallas', served from the .npz", model),
+                   ("'xla', served from the .npz", xla)):
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results.append(evaluate(m, data, tile_out=TILE_OUT, verbose=False, quant="int8-phase",
+                                quant_path=qpath))
+        torch.cuda.synchronize()
+        launches[run] = {name: fn.launches for name, fn in fns.items()}
+        log(f"phase 16: evaluate(quant='int8-phase') {run} in {time.perf_counter() - t0:.2f} "
+            f"s: launches {launches[run]} for {n_tiles} tiles in {n_chunks} chunk(s); "
+            f"{json.dumps(results[-1])}")
+        want = ({name: n * n_chunks for name, n in PHASE_LAUNCHES.items()} if m is model
+                else dict.fromkeys(fns, 0))
+        if launches[run] != want:
+            failed.append(f"{run}: launches {launches[run]}, want {want}")
+    first, second, third = ({k: v for k, v in r.items() if k != "seconds"} for r in results)
+    if not all(np.isfinite(first[k]) for k in ("iou_mean", "pe_mean")):
+        failed.append(f"int8-phase evaluate() result {first}")
+    if not first == second == third:
+        failed.append(f"served from the .npz: {second} ('pallas'), {third} ('xla'); "
+                      f"calibrated: {first}")
+    qp_phase = load_quant_params(qpath)
+    if qp_phase.qnames != default_quant_names(cfg):
+        failed.append(f"the .npz holds int8 convs {sorted(qp_phase.qnames)}")
+
+    qis = {impl: QuantInference(qp_phase, impl=impl, phase_level0="int8", device=DEVICE)
+           for impl in ("pallas", "xla")}
+    tiles = engine._flat_tiles(engine._on_device(data.images[:1], torch.float32))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the float layers run twice
+    n_int8 = 0
+    for stage in QUANT_STAGES + [None]:
+        got = qis["pallas"].apply(tiles, stop_after=stage)
+        n_int8 += got.dtype == torch.int8
+        if not torch.equal(got, qis["xla"].apply(tiles, stop_after=stage)):
+            failed.append(f"QuantInference int8-phase 'pallas' and 'xla' differ at {stage}")
+    torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 16: int8-phase 'pallas' (the k x k kernel and K3) and 'xla' (library) "
+        f"equal at all {len(QUANT_STAGES)} stages ({n_int8} int8; level 0's packed) and the "
+        f"logits, on image 0's {tiles.shape[0]} tiles: {not failed}")
+
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+    preds = {}
+    for key, q in (("int8-phase", qis["pallas"]),
+                   ("int8", QuantInference(qp, impl="pallas", device=DEVICE))):
+        preds[key] = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT,
+                                   apply_fn=q.apply).evaluate_batch(images, lab)[1]
+    agree = (preds["int8-phase"] == preds["int8"]).float().mean().item()
+    log(f"phase 16: class maps int8-phase vs production int8 on the trained model: equal on "
+        f"{agree:.6f} of the pixels (bar {RESEARCH_AGREE})")
+    if agree < RESEARCH_AGREE:
+        failed.append(f"int8-phase class maps agree with production int8 on {agree}")
+    if failed:
+        raise AssertionError(f"phase 16 failed: {failed}")
+    log("phase 16: ok")
+    return qp_phase, launches["'pallas', calibrated and saved"], agree
+
+
+def phase17_time_phase(cfg, model, data, qp, qp_phase):
+    """int8-phase serving times ('pallas', 'xla') beside production int8
+    'pallas', in turns, and a profile; the k x k kernel per chunk against
+    its plain version and the library route; a DIC-HeLa train step of the
+    phase model against the plain one ('xla'); the deep-shootout probe.
+    Returns (tiles/s, kernel times, train step ms, probe records, probe
+    launches)."""
+    from tpu_unet_torch.config import OptimConfig
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.infer.quant import QuantInference
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused, conv_kxk_fused_plain, conv_rows3_col
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_int8_xla
+    from tpu_unet_torch.probes import deep_shootout
+    from tpu_unet_torch.train import make_optimizer
+
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+
+    def make(q, **kw):
+        fn = QuantInference(q, device=DEVICE, **kw).apply
+        return TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT, apply_fn=fn)
+
+    engines = {"int8-phase 'pallas'": make(qp_phase, impl="pallas", phase_level0="int8"),
+               "int8-phase 'xla'": make(qp_phase, impl="xla", phase_level0="int8"),
+               "int8 'pallas'": make(qp, impl="pallas")}
+    n_tiles = len(data) * engines["int8 'pallas'"].plan.num_tiles
+    times = {k: [] for k in engines}
+    for key in list(engines) + list(reversed(engines)):
+        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+    tiles_s = {}
+    for key, ts in times.items():
+        ms = sum(ts) / len(ts)
+        tiles_s[key] = n_tiles / (ms / 1e3)
+        log(f"phase 17: evaluate_batch {key}: {ms:.2f} ms for {n_tiles} tiles of "
+            f"{TILE_IN}^2 = {tiles_s[key]:.1f} tiles/s (runs {[round(t, 3) for t in ts]})")
+    n = 3
+    window, busy, groups, top = _profile(
+        lambda r: engines["int8-phase 'pallas'"].evaluate_batch(images, lab), n)
+    tiles_s["int8-phase 'pallas' profiled_idle_share"] = 1.0 - busy / window
+    log(f"phase 17: profile of {n} evaluate_batch calls int8-phase 'pallas': window "
+        f"{window / n:.3f} ms/call, device busy {busy / n:.3f} ms/call, idle share "
+        f"{1.0 - busy / window:.4f}; by group (ms/call): "
+        + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
+    for name, ms in top:
+        log(f"phase 17:   {ms / n:9.3f} ms/call  {name[:110]}")
+    del engines
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    kxk = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    nbytes = ops = 0
+    with torch.inference_mode():
+        for name, s, cin, cout in kxk_shapes(cfg):
+            x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen, k=2)
+            t = {"kernel": _time_ms(lambda: conv_rows3_col(x, w, alpha, beta), 10),
+                 "plain": _time_ms(lambda: conv_kxk_fused_plain(x, w, alpha, beta), 2),
+                 "library": _time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), 5)}
+            b, o = kxk_cost(BATCH_TILES, s, 2, cin, cout)
+            b_ms, by = bound(b, o, "int8")
+            log(f"phase 17: k x k {name} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel "
+                f"{t['kernel']:.3f} ms ({o / t['kernel'] / 1e9:.1f} TOP/s), library "
+                f"{t['library']:.3f} ms, plain {t['plain']:.3f} ms, bound {b_ms:.3f} ms ({by})")
+            for key in kxk:
+                kxk[key] += t[key]
+            nbytes, ops = nbytes + b, ops + o
+            del x, w, alpha, beta
+    kxk["bound"], kxk["bound_by"] = bound(nbytes, ops, "int8")
+    log(f"phase 17: the two packed convs of one {BATCH_TILES}-tile chunk ({ops / 1e12:.3f} T "
+        f"int8 ops): kernel {kxk['kernel']:.3f} ms ({ops / kxk['kernel'] / 1e9:.1f} TOP/s), "
+        f"library {kxk['library']:.3f} ms, plain {kxk['plain']:.3f} ms, bound "
+        f"{kxk['bound']:.3f} ms ({kxk['bound_by']})")
+
+    parts_in = _train_parts()
+    models = {}
+    for key, phase in (("phase_level0", True), ("plain", False)):
+        m = UNet(dataclasses.replace(cfg, conv_impl="xla", phase_level0=phase),
+                 generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        models[key] = (m, make_optimizer(m.parameters(), OptimConfig()))
+    step_ms = {k: [] for k in models}
+    for key in ("phase_level0", "plain", "plain", "phase_level0"):
+        step_ms[key].append(_time_ms(lambda r=iter(range(100)): _train_step(
+            *models[key], parts_in, next(r)), 4))
+    train_ms = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    log(f"phase 17: DIC-HeLa train step (bf16, batch 2, 572^2, conv_impl 'xla'): "
+        + ", ".join(f"{k} {v:.3f} ms (runs {[round(t, 3) for t in step_ms[k]]})"
+                    for k, v in train_ms.items()))
+    window, busy, groups, top = _profile(
+        lambda r: _train_step(*models["phase_level0"], parts_in, r), n)
+    train_ms["phase_level0 profiled_idle_share"] = 1.0 - busy / window
+    log(f"phase 17: profile of {n} phase_level0 train steps: window {window / n:.3f} ms/step, "
+        f"device busy {busy / n:.3f} ms/step, idle share {1.0 - busy / window:.4f}; by group "
+        "(ms/step): " + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
+    for name, ms in top:
+        log(f"phase 17:   {ms / n:9.3f} ms/step  {name[:110]}")
+    del models
+
+    torch.cuda.empty_cache()
+    conv_kxk_fused.launches = 0
+    probe = deep_shootout.run(batch=BATCH_TILES)
+    probe_launches = conv_kxk_fused.launches
+    bad = [r for r in probe if r["mismatch"]]
+    if bad:
+        raise AssertionError(f"deep-shootout routes differ from the library route: {bad}")
+    log(f"phase 17: deep-shootout probe, batch {BATCH_TILES}: {len(probe)} routes, every "
+        f"mismatch 0; {probe_launches} k x k launches")
+    return tiles_s, kxk, train_ms, probe, probe_launches
+
+
 # (name, source, the TPU kernel it replaces, the formulation it runs on)
 RESEARCH_KERNELS = [
     ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
@@ -1482,6 +1772,10 @@ def main() -> None:
     research_errs = phase12_research_kernels()
     model, qp, research_launches = phase13_serve_research(cfg, data)
     research_tiles_s, research_ms = phase14_time_research(model, data, qp)
+    kxk_err = phase15_kxk_vs_plain(cfg)
+    qp_phase, phase_launches, phase_agree = phase16_serve_int8_phase(cfg, model, data, qp)
+    phase_tiles_s, kxk_ms, phase_train_ms, probe, probe_launches = phase17_time_phase(
+        cfg, model, data, qp, qp_phase)
     del model
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
     k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
@@ -1534,8 +1828,27 @@ def main() -> None:
                                 for k, v in research_launches.items()}},
         "evaluate_tiles_per_s": int8_tiles_s,
     }] + research_kernel_lines(research_errs, research_launches, research_ms,
-                               research_tiles_s),
-        "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err}))
+                               research_tiles_s) + [{
+        "name": "conv_kxk_fused",
+        "route": "cuda",
+        "source": "tpu_unet_torch/csrc/conv_kxk_fused.cu",
+        "replaces": "scripts/tpu_deep_shootout_r4.py:111",
+        "replaces_also": "scripts/tpu_deep_shootout_r4.py:184",
+        "launches": phase_launches["conv_kxk_fused"],
+        "max_abs_err": kxk_err,
+        "ms": kxk_ms["kernel"],
+        "plain_ms": kxk_ms["plain"],
+        "bound_ms": kxk_ms["bound"],
+        "bound_by": kxk_ms["bound_by"],
+        "library_ms": kxk_ms["library"],
+        "launches_by_path": {"serve_int8_phase": phase_launches["conv_kxk_fused"],
+                             "probe": probe_launches},
+        "evaluate_tiles_per_s": phase_tiles_s,
+        "class_map_agreement_vs_int8": phase_agree,
+        "probe": [{k: r[k] for k in ("section", "route", "ms", "tops")} for r in probe],
+    }],
+        "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
+        "phase_level0_train_step_ms": phase_train_ms}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -104,6 +104,7 @@ def test_build_names_library_by_source_hash():
     assert [os.path.basename(s) for s in srcs] == ["concat_quantize.cu",
                                                    "conv3x3_bias_relu.cu",
                                                    "conv3x3_fused.cu",
+                                                   "conv_kxk_fused.cu",
                                                    "edt_column_pass.cu",
                                                    "enc0_chain.cu",
                                                    "interleave.cu"]

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 (fused 3x3 conv + bias + ReLU)
 and its gradient, K2 (the EDT column pass), K3 (the fused int8/bf16 conv
-of quantized serving), and K4, K5 and K6a-c (the fused enc0 chain, the
-fused concat + requantize and the pairing copies of the research int8
-forward). These tests import no JAX
+of quantized serving), K4, K5 and K6a-c (the fused enc0 chain, the fused
+concat + requantize and the pairing copies of the research int8 forward),
+and the fused k x k int8 conv of the phase-packed level 0. These tests
+import no JAX
 (the machine with the card has none) and skip without a CUDA device. Run
 them on the card with
 
@@ -17,6 +18,8 @@ import torch
 from tpu_unet_torch.models import ModelConfig, UNet
 from tpu_unet_torch.ops.conv_pallas import (conv3x3_bias_relu,
                                             conv3x3_bias_relu_plain)
+from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused,
+                                         conv_kxk_fused_plain, conv_rows3_col)
 from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
                                            conv3x3_int8_xla)
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
@@ -430,3 +433,111 @@ def test_research_forward_kernel_matches_library_route(cuda, flags, launches):
     ref = ResearchQuantInference(qp, impl="xla", device=cuda, **flags).apply(x)
     assert logits.shape == (2, 4, 4, 2) and torch.isfinite(logits).all()
     assert torch.equal(logits, ref)
+
+
+# --- the fused k x k int8 conv of the phase-packed level 0 ---------------------
+
+def _kxk_inputs(shape, k, cout, device, offset=0, seed=0):
+    """int8 x (off its 16-byte alignment by `offset` bytes) and w, with f32
+    alpha and beta that spread the outputs over [0, 127]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cin = shape[-1]
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randint(-127, 128, (n + offset,), generator=g, device=device,
+                        dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=device,
+                      dtype=torch.int8)
+    alpha = torch.rand((cout,), generator=g, device=device) * 2e-3 / (k * k * cin) ** 0.5
+    beta = torch.randn((cout,), generator=g, device=device) * 3
+    return buf[offset:].view(shape), w, alpha, beta
+
+
+@pytest.mark.parametrize("k,shape,cout,offset", [
+    (2, (2, 21, 19, 256), 256, 0),   # the packed path's channels, odd extents
+    (2, (2, 9, 13, 32), 32, 0),      # packed widths of a narrow model
+    (2, (1, 8, 11, 24), 40, 0),      # Cin 24: the scalar load path, ragged Cout
+    (2, (2, 9, 12, 32), 16, 5),      # x off its 16-byte alignment
+    (3, (2, 12, 30, 128), 128, 0),   # the 3x3 case (conv_rows3_col)
+    (3, (1, 7, 9, 3), 5, 0),         # K = 27 < one staged step
+])
+def test_kxk_kernel_is_bit_exact(cuda, k, shape, cout, offset):
+    """The kernel against its plain version and the int8 library route: the
+    int32 sums are exact and the epilogue the same two f32 roundings, so
+    all three agree bit for bit; each wrapper name launches it once."""
+    x, w, alpha, beta = _kxk_inputs(shape, k, cout, cuda, offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    ref = conv_kxk_fused_plain(x, w, alpha, beta)
+    lib = conv3x3_int8_xla(x, w, alpha, beta, "int8")
+    calls = [lambda: conv_kxk_fused(x, w, alpha, beta),
+             lambda: conv_rows3_col(x, w, alpha, beta, cout_tile=cout)]
+    if k == 2:
+        calls.append(lambda: conv2x2_fused(x, w, alpha, beta, cout_tile=cout))
+    for call in calls:
+        before = conv_kxk_fused.launches
+        got = call()
+        assert conv_kxk_fused.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert torch.equal(lib, ref)
+    assert 0 < (ref > 0).float().mean() < 1 and int(ref.max()) <= 127
+
+
+def test_kxk_kernel_refuses_what_it_does_not_take(cuda):
+    x, w, alpha, beta = _kxk_inputs((1, 6, 7, 16), 2, 8, cuda)
+    before = conv_kxk_fused.launches
+    with pytest.raises(TypeError):
+        conv_kxk_fused(x, w, alpha.double(), beta)
+    with pytest.raises(TypeError):
+        conv_kxk_fused(x.float(), w.float(), alpha, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_kxk_fused(x.transpose(1, 2).contiguous().transpose(1, 2), w, alpha, beta)
+    with pytest.raises(ValueError):
+        conv_kxk_fused(x, w, alpha.cpu(), beta)
+    with pytest.raises(ValueError):
+        conv_kxk_fused(x, torch.zeros((4, 4, 16, 8), dtype=torch.int8, device=cuda),
+                       alpha, beta)
+    assert conv_kxk_fused.launches == before
+
+
+def test_phase_engine_kernel_matches_library_route(cuda):
+    """A narrow int8-phase engine on the card: impl='pallas' (the k x k
+    kernel twice, K3 13 times per forward) equals impl='xla' (the library
+    routes) bit for bit at every level-0 stage and in the logits."""
+    from tpu_unet_torch.infer.quant import (QuantInference, add_concat_scales,
+                                            calibrate, default_quant_names,
+                                            prepare_quant_params)
+
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand((2, 188, 204, 1), device=cuda)
+    scales = add_concat_scales(cfg, calibrate(model, x))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16))
+    engines = {impl: QuantInference(qp, impl=impl, phase_level0="int8", device=cuda)
+               for impl in ("pallas", "xla")}
+    kxk, k3 = conv_kxk_fused.launches, conv3x3_fused.launches
+    logits = engines["pallas"].apply(x)
+    assert (conv_kxk_fused.launches - kxk, conv3x3_fused.launches - k3) == (2, 13)
+    assert logits.shape == (2, 4, 20, 2) and torch.isfinite(logits).all()
+    assert torch.equal(logits, engines["xla"].apply(x))
+    for stage in ("enc0_conv1", "enc0_conv2", "pool0", "up0", "dec0_conv1", "dec0_conv2"):
+        got = engines["pallas"].apply(x, stop_after=stage)
+        assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage
+
+
+def test_phase_model_matches_plain_on_the_card(cuda):
+    """The phase-packed trainable model against the plain one on the same
+    weights, f32 with TF32 off: logits and gradients at rtol 2e-4."""
+    cfg = ModelConfig(base_width=8)
+    model = UNet(cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
+    phase = UNet(dataclasses.replace(cfg, phase_level0=True)).to(cuda)
+    phase.load_state_dict(model.state_dict())
+    x = torch.rand((2, 204, 204, 1), device=cuda)
+    ys = [m(x) for m in (model, phase)]
+    torch.testing.assert_close(ys[1], ys[0], rtol=2e-4, atol=2e-4)
+    for y in ys:
+        y.square().mean().backward()
+    for (name, p), q in zip(model.named_parameters(), phase.parameters()):
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(q.grad, p.grad, rtol=2e-4, atol=2e-4 * scale, msg=name)

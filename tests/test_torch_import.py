@@ -1,8 +1,8 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
 interpreter imports every module of tpu_unet_torch, runs a tiny evaluate()
-(float and int8), a tiny research int8 forward (fused and paired) and a
-tiny Trainer.fit(), and finds no `jax`, `triton` or
-`tpu_unet` module loaded and no kernel library built."""
+(float, int8 and int8-phase), the phase-packed model, a tiny research int8
+forward (fused and paired) and a tiny Trainer.fit(), and finds no `jax`,
+`triton` or `tpu_unet` module loaded and no kernel library built."""
 
 import ast
 import os
@@ -35,7 +35,12 @@ qpath = os.path.join(tempfile.mkdtemp(), "qp.npz")
 wide = UNet(ModelConfig(base_width=8, conv_impl="pallas"))
 result = evaluate(wide, data, tile_out=36, verbose=False, quant="int8", quant_path=qpath)
 assert os.path.exists(qpath) and result["num_images"] == 2, result
+result = evaluate(wide, data, tile_out=36, verbose=False, quant="int8-phase",
+                  quant_path=qpath)
+assert result["num_images"] == 2, result
 import torch
+phase = UNet(ModelConfig(base_width=2, phase_level0=True))
+assert phase(torch.rand((1, 188, 188, 1))).shape == (1, 4, 4, 2)
 from tpu_unet_torch.infer.quant import (add_concat_scales, calibrate, default_quant_names,
                                         prepare_quant_params)
 from tpu_unet_torch.infer.quant_research import ResearchQuantInference
@@ -43,7 +48,7 @@ x = torch.rand((2, 188, 188, 1), generator=torch.Generator().manual_seed(0))
 qp = prepare_quant_params(wide.cfg, wide, add_concat_scales(wide.cfg, calibrate(wide, x)),
                           default_quant_names(wide.cfg, 16))
 for flags in ({"fused_enc0": True, "fused_concat": True}, {"pair_level0": True}):
-    y = ResearchQuantInference(qp, **flags).apply(x)
+    y = ResearchQuantInference(qp, device="cpu", **flags).apply(x)
     assert y.shape == (2, 4, 4, 2) and bool(torch.isfinite(y).all()), flags
 ds = DatasetConfig(name="s", crop=20, metric="iou", weight_mode="distance",
                    goal=1.0, goal_direction="max")

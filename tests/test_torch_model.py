@@ -176,8 +176,21 @@ def test_rejects_invalid_input_size():
     ("conv_bwd", "mm", "item 13"),
 ])
 def test_unported_options_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        UNet(ModelConfig(base_width=2, **{field: value}))
+    """conv_bwd 'mm'/'auto' raise, naming their ROADMAP item; phase_level0
+    (item 8) is ported: it builds under conv_impl='xla', gives the plain
+    model's logits from the same weights, and refuses 'pallas' as JAX does."""
+    cfg = ModelConfig(base_width=2, **{field: value})
+    if field != "phase_level0":
+        with pytest.raises(NotImplementedError, match=item):
+            UNet(cfg)
+        return
+    model, plain = UNet(cfg), UNet(dataclasses.replace(cfg, phase_level0=False))
+    plain.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 188, 188, 1).astype(np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(model(x), plain(x), rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="phase_level0"):
+        UNet(dataclasses.replace(cfg, conv_impl="pallas"))
 
 
 @pytest.mark.parametrize("field,value", [

@@ -1,0 +1,133 @@
+"""The port's phase-packed trainable model (``ModelConfig.phase_level0``,
+tpu_unet_torch/models/unet.py) against the JAX package's on the same numpy
+weights and inputs, mirroring tests/test_phase_train.py: the logits equal
+JAX's phase model at rtol 1e-4 and the port's plain model at rtol 2e-4 (sums
+in other orders), one step's gradients equal JAX's at rtol 5e-4, the
+parameters stay the canonical ones, and Trainer.fit trains it."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tpu_unet.models import UNet as JaxUNet
+from tpu_unet_torch.config import AugmentConfig, DatasetConfig, LossConfig, ModelConfig, TrainConfig
+from tpu_unet_torch.convert import state_dict_from_jax_params
+from tpu_unet_torch.data import synthetic_dataset
+from tpu_unet_torch.models import UNet
+from tpu_unet_torch.train import Trainer
+from tests.test_torch_model import jax_config, numpy_params
+
+IN = 204      # 16*9 + 60: a valid depth-4 input with an odd l; output 20
+
+
+def _models(cfg, size, seed):
+    """JAX's phase model, its numpy weights, and the port's phase and plain
+    models on those weights."""
+    cfg_p = dataclasses.replace(cfg, phase_level0=True)
+    jmodel = JaxUNet(jax_config(cfg_p))
+    params = numpy_params(jmodel, size, seed)
+    out = []
+    for c in (cfg_p, cfg):
+        m = UNet(c)
+        m.load_state_dict(state_dict_from_jax_params(params))
+        out.append(m)
+    return jmodel, params, out[0], out[1]
+
+
+@pytest.mark.parametrize("variant", ["paper", "parity"])
+def test_phase_forward_matches_jax_and_plain(variant):
+    """parity's zero-padded post-pool skips need an even l in 16l + 60 (188);
+    paper takes any valid size (204, an odd l)."""
+    size = IN if variant == "paper" else 188
+    cfg = ModelConfig(base_width=4, skip_variant=variant)
+    jmodel, params, model_p, model = _models(cfg, size, seed=1)
+    assert [(n, p.shape) for n, p in model_p.named_parameters()] == \
+        [(n, p.shape) for n, p in model.named_parameters()]
+    x = np.random.RandomState(1).randn(2, size, size, 1).astype(np.float32)
+    want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model_p(torch.from_numpy(x))
+        plain = model(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def _loss(logits, tgt):
+    """A weighted-BCE-shaped scalar over both logit channels, as
+    tests/test_phase_train.py's."""
+    lo = torch.log_softmax(logits, dim=-1)
+    return -(tgt[..., 0] * lo[..., 1] + (1 - tgt[..., 0]) * lo[..., 0]).mean()
+
+
+def test_phase_grads_match_jax():
+    cfg = ModelConfig(base_width=4)
+    jmodel, params, model_p, model = _models(cfg, IN, seed=2)
+    rng = np.random.RandomState(2)
+    x = rng.randn(1, IN, IN, 1).astype(np.float32)
+    tgt = (rng.rand(1, 20, 20, 1) > 0.5).astype(np.float32)
+
+    def jloss(p):
+        lo = jax.nn.log_softmax(jmodel.apply(p, jnp.asarray(x)), axis=-1)
+        return -jnp.mean(tgt[..., 0] * lo[..., 1] + (1 - tgt[..., 0]) * lo[..., 0])
+
+    want = state_dict_from_jax_params(jax.jit(jax.grad(jloss))(params))
+    for m in (model_p, model):
+        _loss(m(torch.from_numpy(x)), torch.from_numpy(tgt)).backward()
+    for name, p in model_p.named_parameters():
+        scale = want[name].abs().max().item()
+        for got in (p.grad, dict(model.named_parameters())[name].grad):
+            np.testing.assert_allclose(got.numpy(), want[name].numpy(), rtol=5e-4,
+                                       atol=1e-6 + 5e-4 * scale, err_msg=name)
+
+
+def test_phase_remat_and_bf16_train():
+    """remat checkpoints the packed level 0 as it does the others (equal
+    gradients); the bf16 phase model takes an SGD step with a finite loss."""
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, IN, IN, 1).astype(np.float32))
+    tgt = torch.from_numpy((np.random.RandomState(5).rand(1, 20, 20, 1) > 0.5)
+                           .astype(np.float32))
+    grads = []
+    for remat in (False, True):
+        m = UNet(ModelConfig(base_width=2, phase_level0=True, remat=remat),
+                 generator=torch.Generator().manual_seed(3))
+        _loss(m(x), tgt).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
+    m = UNet(ModelConfig(base_width=2, phase_level0=True, remat=True,
+                         compute_dtype="bfloat16"), generator=torch.Generator().manual_seed(3))
+    before = [p.detach().clone() for p in m.parameters()]
+    loss = _loss(m(x), tgt)
+    loss.backward()
+    with torch.no_grad():
+        for p in m.parameters():
+            p -= 0.01 * p.grad
+    assert np.isfinite(loss.item())
+    assert sum((p - b).abs().sum().item() for p, b in zip(m.parameters(), before)) > 0
+
+
+def test_phase_fit_one_epoch(tmp_path):
+    ds = DatasetConfig(name="synthetic", crop=20, metric="iou", weight_mode="distance",
+                       goal=0.999, goal_direction="max")
+    data = synthetic_dataset(n_images=4, h=64, w=64, n_cells=3, crop=20, seed=0)
+    trainer = Trainer(ds, model_cfg=ModelConfig(base_width=2, phase_level0=True),
+                      train_cfg=TrainConfig(batch_size=2), aug_cfg=AugmentConfig(crop=20),
+                      loss_cfg=LossConfig(weight_mode="distance", max_objects=8),
+                      out_dir=str(tmp_path / "run"), verbose=False, device="cpu")
+    history = trainer.fit(data, data, epochs=1)
+    assert len(history["loss"]) == 2 and all(np.isfinite(history["loss"]))
+    assert trainer.model.cfg.phase_level0
+
+
+def test_phase_rejects_pallas_and_odd_sizes():
+    with pytest.raises(ValueError, match="phase_level0"):
+        UNet(ModelConfig(base_width=2, phase_level0=True, conv_impl="pallas"))
+    model = UNet(ModelConfig(base_width=2, phase_level0=True))
+    with pytest.raises(ValueError, match="even"):
+        model(torch.zeros(1, 189, 188, 1))

@@ -298,7 +298,8 @@ def test_every_stage_matches_jax(nets, qparams, jax_stages, skip, impl):
 
 def test_forward_options(nets, qparams, jax_stages):
     """upconv_impl='matmul', a per-layer route mix and block_rows given: the
-    same logits as the default engine; the unported options raise."""
+    same logits as the default engine; phase_level0 serves (held to JAX's
+    phase engine in test_torch_quant_phase.py); the int4 tier raises."""
     x = torch.from_numpy(nets["x"])
     want = jax_stages["paper"]["logits"]
     tqp = qparams[1]
@@ -308,9 +309,9 @@ def test_forward_options(nets, qparams, jax_stages):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="impl"):
         tq.QuantInference(tqp, impl="cuda", device="cpu")
-    for mode in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tq.QuantInference(tqp, phase_level0=mode, device="cpu")
+    for mode in ("bf16", "int8"):         # item 8, ported: the phase engine
+        got = tq.QuantInference(tqp, phase_level0=mode, device="cpu").apply(x).numpy()
+        assert got.shape == want.shape and np.isfinite(got).all()
     with pytest.raises(NotImplementedError, match="item 10"):
         tq.QuantInference(dataclasses.replace(tqp, q4names=frozenset({"dec1_conv1"})),
                           device="cpu")
@@ -319,8 +320,8 @@ def test_forward_options(nets, qparams, jax_stages):
                                 q4names=frozenset({"dec1_conv1"}))
     with pytest.raises(NotImplementedError, match="item 10"):
         tq.build_quant_inference(nets["bfloat16"], x, int4=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tq.build_quant_inference(nets["bfloat16"], x, phase_level0="int8")
+    qi = tq.build_quant_inference(nets["bfloat16"], x, phase_level0="int8")
+    assert qi.phase_level0 == "int8" and qi.device == torch.device("cpu")
 
 
 def test_npz_crosses_both_ways(nets, qparams, jax_stages, tmp_path):

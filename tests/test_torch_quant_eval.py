@@ -1,6 +1,7 @@
 """The port's int8 evaluate() against the JAX package's on the CPU, given
-the same numpy weights: served from a .npz that JAX calibrated and wrote,
-calibrated once and then served from disk, and the tiers not ported."""
+the same numpy weights: served from a .npz that JAX calibrated and wrote
+(quant 'int8' and 'int8-phase'), calibrated once and then served from disk,
+and the tiers not ported."""
 
 import os
 
@@ -59,10 +60,33 @@ def test_evaluate_int8_matches_jax(nets, tmp_path):
         np.testing.assert_allclose(got[key], expected[key], rtol=1e-6, atol=1e-7)
 
 
+def test_evaluate_int8_phase_matches_jax(nets, tmp_path):
+    """evaluate(quant='int8-phase') served from the .npz JAX's evaluate
+    calibrated and wrote (JAX run eagerly, as for quant='int8' above):
+    class maps equal, metrics at rtol 1e-6."""
+    path = str(tmp_path / "qp.npz")
+    jmodel = JaxUNet(jax_config(nets["bfloat16"].cfg))
+    with jax.disable_jit():
+        expected = jax_evaluate(jmodel, nets["params"], jax_synthetic_dataset(**EVAL_DATA),
+                                output_dir=str(tmp_path / "jax"), verbose=False,
+                                quant="int8-phase", quant_path=path)
+    data = synthetic_dataset(**EVAL_DATA)
+    got = evaluate(nets["bfloat16"], data, output_dir=str(tmp_path / "port"), verbose=False,
+                   quant="int8-phase", quant_path=path)
+    from PIL import Image
+    for i in range(2):
+        pred = np.asarray(Image.open(tmp_path / "port" / "preds" / f"pred{i}.tif"))
+        jpred = np.asarray(Image.open(tmp_path / "jax" / "preds" / f"pred{i}.tif"))
+        assert 0 < (pred > 0).mean() < 1
+        np.testing.assert_array_equal(pred, jpred)
+    for key in ("iou_mean", "iou_std", "pe_mean", "pe_std"):
+        np.testing.assert_allclose(got[key], expected[key], rtol=1e-6, atol=1e-7)
+
+
 def test_evaluate_int8_calibrates_once_then_serves_from_disk(nets, tmp_path, monkeypatch):
     """A missing quant_path is calibrated and written; the next evaluate is
-    served from the file with no calibration, and gives the same metrics.
-    The unported tiers raise, naming their ROADMAP items."""
+    served from the file with no calibration, and gives the same metrics;
+    so is int8-phase. The int4 tiers raise, naming their ROADMAP item."""
     model = nets["bfloat16"]
     data = synthetic_dataset(**EVAL_DATA)
     calls = []
@@ -77,9 +101,11 @@ def test_evaluate_int8_calibrates_once_then_serves_from_disk(nets, tmp_path, mon
     assert calls == [1]
     assert {k: v for k, v in first.items() if k != "seconds"} == \
         {k: v for k, v in second.items() if k != "seconds"}
-    for quant, item in (("int8-phase", "item 8"), ("int4", "item 10"),
-                        ("int4-phase", "items 8 and 10")):
-        with pytest.raises(NotImplementedError, match=item):
+    # int8-phase serves from the same file (item 8, ported): no calibration
+    phase = evaluate(model, data, verbose=False, quant="int8-phase", quant_path=path)
+    assert calls == [1] and np.isfinite(phase["pe_mean"]) and phase["num_images"] == 2
+    for quant in ("int4", "int4-phase"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             evaluate(model, data, verbose=False, quant=quant)
     with pytest.raises(ValueError, match="quant must be"):
         evaluate(model, data, verbose=False, quant="fp8")

@@ -120,9 +120,9 @@ def test_odd_batch_and_flags_off_are_the_production_forward(nets, qparams):
 
 def test_flags_refuse_what_they_do_not_compose_with(nets, qparams):
     """The research flags with phase_level0 or with int4 raise ValueError as
-    JAX's class does; those options alone raise the parent's
-    NotImplementedError (ROADMAP items 8 and 10); enc0_chain's options are
-    checked when they reach it."""
+    JAX's class does; phase_level0 alone serves the production phase engine,
+    int4 alone raises the parent's NotImplementedError (ROADMAP item 10);
+    enc0_chain's options are checked when they reach it."""
     tqp = qparams[1]
     q4 = dataclasses.replace(tqp, q4names=frozenset({"dec1_conv1"}))
     for flags in (FUSED, PAIR, {"fused_concat": True}):
@@ -130,11 +130,13 @@ def test_flags_refuse_what_they_do_not_compose_with(nets, qparams):
             tqr.ResearchQuantInference(tqp, phase_level0="int8", device="cpu", **flags)
         with pytest.raises(ValueError, match="int4"):
             tqr.ResearchQuantInference(q4, device="cpu", **flags)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tqr.ResearchQuantInference(tqp, phase_level0="bf16", device="cpu")
+    x = torch.from_numpy(nets["x"])
+    # phase_level0 alone is the production phase engine (item 8, ported)
+    assert torch.equal(
+        tqr.ResearchQuantInference(tqp, phase_level0="bf16", device="cpu").apply(x),
+        tq.QuantInference(tqp, phase_level0="bf16", device="cpu").apply(x))
     with pytest.raises(NotImplementedError, match="item 10"):
         tqr.ResearchQuantInference(q4, device="cpu")
-    x = torch.from_numpy(nets["x"])
     # dec0_conv1 is int8 here, so enc0_chain captures an int8 skip, which
     # pool_mode='none' would pool as integers
     for opts, match in (({"pool_mode": "none"}, "quantized skip"),

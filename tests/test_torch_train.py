@@ -209,7 +209,7 @@ def _trainer(tmp_path, ds=None, conv_impl="xla", **train):
                                             **train}),
                    aug_cfg=AugmentConfig(crop=20),
                    loss_cfg=LossConfig(weight_mode=ds.weight_mode, max_objects=8),
-                   out_dir=str(tmp_path / "run"), verbose=False)
+                   out_dir=str(tmp_path / "run"), verbose=False, device="cpu")
 
 
 def test_fit_synthetic_end_to_end(tmp_path):

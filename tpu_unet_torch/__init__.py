@@ -2,14 +2,17 @@
 H100. It imports no JAX; the JAX package `tpu_unet` is its reference.
 
 Layering (mirrors tpu_unet):
-  csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a): K1 the
-             fused 3x3 conv + bias + ReLU, K2 the EDT column pass
+  csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a), one for
+             each Pallas kernel of tpu_unet and of its probe scripts
   ops/       the kernels' wrappers, plain versions and K1's gradient, their
-             build; EDT, connected components, warps, padding
+             build; EDT, connected components, warps, padding, phase
+             packing
   models/    the U-Net as an nn.Module, with the JAX package's layer names
   data/      host ingest, synthetic fixture datasets, augmentation
   losses/    weighted BCE, weight maps, IoU / pixel error
-  infer/     overlap-tile inference engine, evaluation entry point, export
+  infer/     overlap-tile inference engine, evaluation entry point, export,
+             int8 serving
+  probes/    kernel timings on the card at fixed shapes
   train/     trainer, optimizer and plateau scheduler, checkpoints,
              progress curves, folds
   config     the configuration dataclasses and dataset presets

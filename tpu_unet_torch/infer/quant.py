@@ -15,6 +15,15 @@
   low-channel convs and the 1x1 head stay bf16 with f32 sums; decoder
   concats happen in int8 (the skip is requantized in place, and float skips
   are captured already quantized at the concat scale).
+* ``phase_level0`` ('bf16' or 'int8') runs level 0 on the 2x2 phase
+  decomposition (ops/phase.py): 3x3 convs become 2x2 convs at 4x the
+  channels, pool0 a max over the phase groups, up0 one matmul, and dec0's
+  concat two split-kernel convs, each source at its own scale. 'int8' also
+  quantizes the packed ``enc0_conv2`` and ``dec0_conv2`` (packed cin 4 x
+  w0); under ``impl='pallas'`` those two run through the Hopper kernel
+  `ops.conv_kxk.conv_rows3_col`, under 'xla' through the library route. The
+  split int8 ``dec0_conv1`` (two int32 sums with a scale each) takes the
+  library accumulate under both, as the JAX package's does.
 
 `QuantParams` holds the JAX package's layouts (HWIO kernels, the spatially
 flipped transposed-conv kernels of ``up{d}``) as CPU tensors, so a
@@ -26,8 +35,7 @@ before one bf16 rounding, as the JAX package's ``preferred_element_type``
 convs do. On the card they may run in TF32: a bf16 value is exact in TF32,
 so the products are those of f32.
 
-Not ported yet: the int4 tier (ROADMAP queue 1, item 10) and the
-phase-packed level 0 (item 8).
+Not ported yet: the int4 tier (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -45,11 +53,13 @@ import torch.nn.functional as F
 from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.convert import kernel_to_convtranspose_weight, params_from_state_dict
 from tpu_unet_torch.models.unet import _max_pool2, center_crop_or_pad
+from tpu_unet_torch.ops import phase as ph
+from tpu_unet_torch.ops.conv_kxk import conv_rows3_col
 from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int8_xla,
-                                           quantize_activations, quantize_weights)
+                                           conv_int8_acc, quantize_activations,
+                                           quantize_weights)
 
 _INT4 = "the int4 tier is not ported yet (ROADMAP queue 1, item 10)"
-_PHASE = "phase-packed level 0 is not ported yet (ROADMAP queue 1, item 8)"
 
 
 def _conv_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -200,8 +210,9 @@ class QuantInference:
     `layer_impl` overrides it per conv name. `block_rows=None` asks K3 for
     the per-shape TPU configs (`best_config`), which it validates and does
     not need. `upconv_impl`: 'xla' (transposed conv) or 'matmul' (one
-    matmul + depth-to-space). `device`: where it runs (default: the CUDA
-    card when there is one)."""
+    matmul + depth-to-space). `phase_level0`: None, 'bf16' or 'int8' (see
+    the module docstring). `device`: where it runs, default 'cuda'; without
+    a card pass ``device='cpu'``."""
 
     def __init__(self, qp: QuantParams, impl: str = "xla",
                  block_rows: Optional[int] = None,
@@ -215,8 +226,11 @@ class QuantInference:
         if phase_level0 not in (None, "bf16", "int8"):
             raise ValueError(f"phase_level0 must be None, 'bf16' or 'int8', got "
                              f"{phase_level0!r}")
-        if phase_level0:
-            raise NotImplementedError(_PHASE)
+        if phase_level0 and qp.cfg.skip_variant != "paper":
+            raise ValueError("phase_level0 requires the paper skip variant (the parity "
+                             "skip is captured post-pool, outside the packed domain)")
+        if phase_level0 and qp.cfg.in_channels != 1:
+            raise ValueError("phase_level0 expects the 1-channel input")
         if qp.q4names:
             raise NotImplementedError(_INT4)
         if upconv_impl not in ("xla", "matmul"):
@@ -230,9 +244,9 @@ class QuantInference:
         self.block_rows = block_rows
         self.layer_impl = dict(layer_impl or {})
         self.upconv_impl = upconv_impl
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device=\"cpu\" to serve on the CPU")
+        self.device = torch.device(device or "cuda")
         dev = self.device
         # the weights in PyTorch's layouts on the device, once
         self._wq = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.qconv.items()}
@@ -249,6 +263,8 @@ class QuantInference:
         self._epilogues: Dict[Tuple[str, float, bool], Tuple[torch.Tensor, torch.Tensor]] = {}
         self._scalars: Dict[Tuple[float, torch.dtype], torch.Tensor] = {}
         self._paired: Dict[str, object] = {}
+        self.phase_level0 = phase_level0
+        self._phase = self._phase_prep(phase_level0) if phase_level0 else None
 
     # -- primitives ---------------------------------------------------------
 
@@ -347,6 +363,147 @@ class QuantInference:
             y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2)
         return (y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
+    # -- the phase-packed level 0 -------------------------------------------
+
+    def _phase_prep(self, mode: str) -> Dict[str, tuple]:
+        """Level 0's parameters in their packed forms on the device, once:
+        packed kernels (int8 HWIO for the int8 convs, bf16-valued OIHW for
+        the float ones), epilogue vectors lifted to the phase-major channel
+        order by ``np.tile(v, 4)`` (numpy f32, as the JAX package computes
+        them), up0 as one matmul, and dec0_conv1 split by source."""
+        qp, dev = self.qp, self.device
+        w0 = qp.cfg.widths[0]
+        if (mode == "int8"
+                or not {"enc0_conv2", "dec0_conv1", "dec0_conv2"}.isdisjoint(qp.qnames)):
+            missing = [k for k in ("enc0_conv1", "enc0_conv2", "up0", "dec0_conv1",
+                                   "dec0_conv2") if k not in qp.scales]
+            if missing:
+                raise ValueError("phase_level0 needs the full calibration scale set "
+                                 f"(calibrate() records it); missing: {missing}")
+        if "enc0_conv1" in qp.qnames:
+            raise ValueError("phase_level0 runs enc0_conv1 in bf16 (its packed cin is 4); "
+                             "build the QuantParams with enc0_conv1 outside qnames")
+
+        def np32(t) -> np.ndarray:
+            return t.float().numpy()
+
+        def packed_f(kernel: np.ndarray, bias: np.ndarray):
+            k = torch.from_numpy(ph.phase_pack_kernel(kernel)).to(torch.bfloat16).float()
+            return (k.permute(3, 2, 0, 1).contiguous().to(dev),
+                    torch.from_numpy(np.tile(bias, 4)).to(dev))
+
+        def pack_i8(w_q: torch.Tensor) -> torch.Tensor:
+            k = ph.phase_pack_kernel(w_q.numpy().astype(np.int32)).astype(np.int8)
+            return torch.from_numpy(k).to(dev)
+
+        def fold(s_in: float, s_w: np.ndarray, bias: np.ndarray, s_out: float):
+            """alpha = s_in * s_w / s_out and beta = bias / s_out, tiled."""
+            alpha = np.tile(np.asarray(s_in * s_w, np.float32) / s_out, 4)
+            beta = np.tile(np.asarray(bias, np.float32) / s_out, 4)
+            return torch.from_numpy(alpha).to(dev), torch.from_numpy(beta).to(dev)
+
+        P: Dict[str, tuple] = {}
+        k1, b1 = qp.fconv["enc0_conv1"]
+        P["enc0_conv1"] = packed_f(np32(k1), np32(b1))
+
+        def level0_pair(name: str, s_in_key: str) -> tuple:
+            if name in qp.qnames:          # the production int8 weights
+                w_q, s_w, bias = qp.qconv[name]
+            elif mode == "int8":
+                k, bias = qp.fconv[name]
+                w_q, s_w = quantize_weights(k.float())
+            else:
+                return ("bf16",) + packed_f(*(np32(t) for t in qp.fconv[name]))
+            alpha, beta = fold(qp.scales[s_in_key], np32(s_w), np32(bias), qp.scales[name])
+            return ("int8", pack_i8(w_q), alpha, beta, qp.scales[name])
+
+        P["enc0_conv2"] = level0_pair("enc0_conv2", "enc0_conv1")
+        P["dec0_conv2"] = level0_pair("dec0_conv2", "dec0_conv1")
+
+        ku, bu = qp.fconv["up0"]
+        m, bm = ph.phase_upconv_weights(np32(ku), np32(bu))
+        P["up0"] = (torch.from_numpy(m.copy()).to(torch.bfloat16).float().to(dev),
+                    torch.from_numpy(bm).to(dev))
+
+        # dec0_conv1 split by source (skip | up, the concat's order); the int8
+        # halves share the whole kernel's per-output-channel weight scales
+        if "dec0_conv1" in qp.qnames:
+            w_q, s_w, bias = qp.qconv["dec0_conv1"]
+            s_sk, s_up = qp.scales["enc0_conv2"], qp.scales["up0"]
+            s_out = qp.scales["dec0_conv1"]
+            a_sk, beta = fold(s_sk, np32(s_w), np32(bias), s_out)
+            a_up, _ = fold(s_up, np32(s_w), np32(bias), s_out)
+            P["dec0_conv1"] = ("int8", pack_i8(w_q[:, :, :w0]), pack_i8(w_q[:, :, w0:]),
+                               a_sk, a_up, beta, s_out, s_sk, s_up)
+        else:
+            k, b = (np32(t) for t in qp.fconv["dec0_conv1"])
+            ksk, bb = packed_f(k[:, :, :w0], b)
+            kup, _ = packed_f(k[:, :, w0:], np.zeros_like(b))
+            P["dec0_conv1"] = ("bf16", ksk, kup, bb)
+        kh, bh = qp.fconv["head"]              # [1, 1, C, O]: the per-phase matmul
+        P["head"] = (kh.float().to(dev), bh.to(dev))
+        return P
+
+    def _conv_packed_f(self, v: torch.Tensor, k: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
+        """relu(conv2x2(v, k) + b) of bf16 values summed in f32 (k packed
+        OIHW), one bf16 rounding: a packed float conv."""
+        with _tf32_for_bf16_values():
+            y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
+        return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+
+    def _conv_packed_i8(self, name: str, v: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """A packed int8 conv (int8 in, int8 out): the Hopper kernel under
+        'pallas', the library route under 'xla'."""
+        _, wp, alpha, beta, _ = spec
+        v = v.contiguous()
+        if self.layer_impl.get(name, self.impl) == "xla":
+            return conv3x3_int8_xla(v, wp, alpha, beta, out_kind="int8")
+        return conv_rows3_col(v, wp, alpha, beta)
+
+    def _phase_dec0(self, v: torch.Tensor, s, skip, cut) -> torch.Tensor:
+        """Packed dec0: up0 as one matmul (its output already packed), the
+        concat as two split-kernel convs (each source at its own scale), the
+        packed dec0 convs and the head; depth-to-space only on the logits."""
+        qp, P = self.qp, self._phase
+        km, bm = P["up0"]
+        with _tf32_for_bf16_values():
+            u = (self._deq(v, s).to(torch.bfloat16).float() @ km + bm).to(torch.bfloat16)
+        if cut("up0"):
+            return u
+        sk_p, sk_s = skip
+        # the full-resolution margin is the packed sizes' difference
+        skc = ph.phase_crop(sk_p, sk_p.shape[1] - u.shape[1])
+        spec = P["dec0_conv1"]
+        if spec[0] == "int8":
+            _, wsk, wup, a_sk, a_up, beta, s_out, s_sk, s_up = spec
+            sk_q = skc if sk_s is not None else self._quantize(skc, s_sk)
+            acc = (conv_int8_acc(sk_q, wsk).float() * a_sk
+                   + conv_int8_acc(self._quantize(u, s_up), wup).float() * a_up)
+            y = torch.relu(acc + beta)
+            v, s = torch.round(y).clamp_(0.0, 127.0).to(torch.int8), s_out
+        else:
+            _, ksk, kup, bb = spec
+            skb = self._deq(skc, sk_s).to(torch.bfloat16).float().permute(0, 3, 1, 2)
+            with _tf32_for_bf16_values():
+                acc = F.conv2d(skb, ksk) + F.conv2d(u.float().permute(0, 3, 1, 2), kup)
+            v, s = torch.relu(acc.permute(0, 2, 3, 1) + bb).to(torch.bfloat16), None
+        if cut("dec0_conv1"):
+            return v
+        spec = P["dec0_conv2"]
+        if spec[0] == "int8":
+            if s is None:
+                v = self._quantize(v, qp.scales["dec0_conv1"])
+            v, s = self._conv_packed_i8("dec0_conv2", v, spec), spec[4]
+        else:
+            v, s = self._conv_packed_f(self._deq(v, s), *spec[1:]), None
+        if cut("dec0_conv2"):
+            return v
+        kh, bh = P["head"]
+        with _tf32_for_bf16_values():
+            y = ph.phase_head_matmul(self._deq(v, s).to(torch.bfloat16), kh, bh)
+        return ph.depth_to_space(y)
+
     def _input_scale_key(self, name: str) -> str:
         """Calibration key of a quantized conv's float input tensor (the
         producing tensor: pooling keeps the scale)."""
@@ -369,7 +526,8 @@ class QuantInference:
 
         `stop_after`: return the tensor right after the named stage
         ('enc{d}_conv{i}', 'pool{d}', 'bottleneck_conv{i}', 'up{d}',
-        'dec{d}_conv{i}'): int8 after a quantized conv, bf16 otherwise."""
+        'dec{d}_conv{i}'): int8 after a quantized conv, bf16 otherwise;
+        level 0's stages packed under `phase_level0`."""
         cfg, qp = self.qp.cfg, self.qp
 
         def cut(name):
@@ -386,6 +544,24 @@ class QuantInference:
         v, s = x.to(self.device, torch.float32).to(torch.bfloat16), None
         skips = []
         for d in range(cfg.depth):
+            if d == 0 and self._phase is not None:
+                P = self._phase
+                y = self._conv_packed_f(ph.space_to_depth(v), *P["enc0_conv1"])
+                if cut("enc0_conv1"):          # packed [.., 4 * w0]
+                    return y
+                spec = P["enc0_conv2"]
+                if spec[0] == "int8":
+                    v, s = self._conv_packed_i8("enc0_conv2", self._quantize(
+                        y, qp.scales["enc0_conv1"]), spec), spec[4]
+                else:
+                    v, s = self._conv_packed_f(y, *spec[1:]), None
+                if cut("enc0_conv2"):          # packed
+                    return v
+                skips.append((v, s))           # packed, at its own scale
+                v = ph.phase_pool(v)           # exits the packed domain
+                if cut("pool0"):
+                    return v
+                continue
             v, s = self._conv(f"enc{d}_conv1", v, s)
             if cut(f"enc{d}_conv1"):
                 return v
@@ -407,6 +583,8 @@ class QuantInference:
             return v
 
         for d in reversed(range(cfg.depth)):
+            if d == 0 and self._phase is not None:
+                return self._phase_dec0(v, s, skips[0], cut)
             u = self._upconv(f"up{d}", self._deq(v, s))
             if cut(f"up{d}"):
                 return u
@@ -529,13 +707,14 @@ def build_quant_inference(model, sample_batch, min_channels: int = 128,
                           ) -> QuantInference:
     """Calibrate the port UNet `model` (which holds its weights) on
     `sample_batch`, quantize it, and build the engine on the model's
-    device."""
+    device. A model under ``cfg.phase_level0`` is calibrated through its
+    packed forward, as the JAX package's is: its level-0 outputs are the
+    same values in another order."""
     if int4 or int4_names:
         raise NotImplementedError(_INT4)
-    if phase_level0:
-        raise NotImplementedError(_PHASE)
     cfg = model.cfg
     scales = add_concat_scales(cfg, calibrate(model, sample_batch))
     qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, min_channels))
     return QuantInference(qp, impl=impl, block_rows=block_rows, interpret=interpret,
-                          layer_impl=layer_impl, device=_model_device(model))
+                          layer_impl=layer_impl, phase_level0=phase_level0,
+                          device=_model_device(model))

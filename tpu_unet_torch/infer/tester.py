@@ -41,14 +41,13 @@ def export_predictions(output_dir: str, idx: int, image: np.ndarray,
     _save_tiff(os.path.join(output_dir, "preds", f"pred{idx}.tif"), pred)
 
 
-_QUANT_ITEMS = {"int8-phase": "item 8", "int4": "item 10", "int4-phase": "items 8 and 10"}
-
-
-def _get_quant_inference(model, prepared, quant_path: Optional[str]):
-    """The int8 engine for `model`. An existing `quant_path` (.npz, either
-    package's) is served from disk with no calibration; otherwise the model
-    is calibrated on the eval images, and the result saved to `quant_path`
-    when one is given.
+def _get_quant_inference(model, prepared, quant_path: Optional[str],
+                         phase_level0: Optional[str] = None):
+    """The int8 engine for `model` (level 0 phase-packed under
+    `phase_level0`). An existing `quant_path` (.npz, either package's) is
+    served from disk with no calibration; otherwise the model is calibrated
+    on the eval images, and the result saved to `quant_path` when one is
+    given.
 
     K3 serves when ``model.cfg.conv_impl == 'pallas'``, the int8 library
     route otherwise. (The JAX package always builds ``impl='xla'``, which
@@ -61,9 +60,10 @@ def _get_quant_inference(model, prepared, quant_path: Optional[str]):
     device = next(model.parameters()).device
     if quant_path is not None and (os.path.exists(quant_path)
                                    or os.path.exists(quant_path + ".npz")):
-        return QuantInference(load_quant_params(quant_path), impl=impl, device=device)
+        return QuantInference(load_quant_params(quant_path), impl=impl,
+                              phase_level0=phase_level0, device=device)
     qi = build_quant_inference(model, calibration_batch([p[0] for p in prepared]),
-                               impl=impl)
+                               impl=impl, phase_level0=phase_level0)
     if quant_path is not None:
         save_quant_params(quant_path, qi.qp)
     return qi
@@ -84,20 +84,23 @@ def evaluate(
     flat tile batch.
 
     `quant='int8'` serves through the post-training-quantized forward
-    (infer/quant.py); `quant_path` serves from, or writes, its calibrated
-    parameters (.npz)."""
-    if quant in _QUANT_ITEMS:
+    (infer/quant.py); `quant='int8-phase'` also runs level 0 phase-packed,
+    its packed convs in int8 (``phase_level0='int8'``); `quant_path` serves
+    from, or writes, the calibrated parameters (.npz, the same file for
+    both)."""
+    if quant in ("int4", "int4-phase"):
         raise NotImplementedError(f"quant={quant!r} is not ported yet (ROADMAP "
-                                  f"queue 1, {_QUANT_ITEMS[quant]})")
-    if quant not in (None, "int8"):
+                                  f"queue 1, item 10)")
+    if quant not in (None, "int8", "int8-phase"):
         raise ValueError(f"quant must be None, 'int8', 'int8-phase', 'int4' or "
                          f"'int4-phase', got {quant!r}")
     start = time.time()
     prepared = [square_crop(data.images[i], data.targets[i])
                 for i in range(len(data))]
     apply_fn = None
-    if quant == "int8":
-        apply_fn = _get_quant_inference(model, prepared, quant_path).apply
+    if quant is not None:
+        phase = "int8" if quant == "int8-phase" else None
+        apply_fn = _get_quant_inference(model, prepared, quant_path, phase).apply
     groups: Dict[tuple, list] = {}
     for idx, (img, _tgt) in enumerate(prepared):
         groups.setdefault(img.shape, []).append(idx)

@@ -15,12 +15,20 @@ train: the kernel's gradient is its autograd.Function, the split form's is
 autograd's (the same cotangents as the JAX package's ``_scc_bwd``), and
 ``remat`` checkpoints each encoder level, as the JAX package does.
 
+``phase_level0`` runs level 0 (enc0's convs, pool0, up0, dec0's convs and
+the head) on the 2x2 phase decomposition of the input (ops/phase.py): the
+3x3 convs as 2x2 convs at 4x the channels with the kernels packed inside the
+forward, differentiably, so the parameters stay the canonical ones and
+checkpoints do not change. It needs ``conv_impl='xla'`` and even H, W, as
+the JAX package's does.
+
 ``forward(x, capture=d)`` fills the dict `d` with every 3x3 conv's output,
 every ``up{d}`` output and the head's output, by layer name: the counterpart
 of Flax's ``capture_intermediates``, which quantized serving's calibration
 reads. A 3x3 conv's output is recorded after its ReLU (K1 fuses the two):
 its maximum clipped at 0, all that calibration reads, is the same either
-way.
+way. Under ``phase_level0`` the level-0 outputs are recorded packed, as in
+the JAX package: the same values in another order.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.core.geometry import output_size_for_input
+from tpu_unet_torch.ops import phase as ph
 from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -209,13 +218,59 @@ class UNet(nn.Module):
         w, b = self._wb(name)
         return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=2))
 
+    # -- the phase-packed level 0 (ops/phase.py) ------------------------------
+    # Each layer packs its canonical weights per call; NHWC packed in and out.
+
+    def _packed(self, name: str, ci: slice = slice(None)) -> torch.Tensor:
+        """`name`'s 3x3 kernel (input channels `ci`) packed, as OIHW."""
+        w, _ = self._wb(name)
+        return ph.phase_pack_kernel_torch(w[:, ci].permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
+
+    def _phase_conv_relu(self, name: str, xp: torch.Tensor,
+                         capture: Optional[dict] = None) -> torch.Tensor:
+        y = F.conv2d(_nchw(xp), self._packed(name), ph.phase_bias(self._wb(name)[1]))
+        y = _nhwc(F.relu(y))
+        if capture is not None:
+            capture[name] = y
+        return y
+
+    def _phase_split_concat_conv_relu(self, name: str, ap: torch.Tensor, bp: torch.Tensor,
+                                      capture: Optional[dict] = None) -> torch.Tensor:
+        """relu(conv(concat(ap, bp)) + bias), packed, without building the
+        concat. The JAX package routes this form's backward through the
+        concat form (a custom VJP) only to avoid an XLA TPU compile assert;
+        autograd through the split form gives the same cotangents."""
+        ca = ap.shape[-1] // 4
+        b = ph.phase_bias(self._wb(name)[1])
+        y = (F.conv2d(_nchw(ap), self._packed(name, slice(None, ca)))
+             + F.conv2d(_nchw(bp), self._packed(name, slice(ca, None)), b))
+        y = _nhwc(F.relu(y))
+        if capture is not None:
+            capture[name] = y
+        return y
+
+    def _phase_upconv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """up{d} emitting a packed output: one matmul (the JAX layout's
+        kernel is the ConvTranspose2d weight permuted and flipped back)."""
+        w, b = self._wb(name)
+        return ph.phase_upconv_matmul(x, w.permute(2, 3, 0, 1).flip((0, 1)), b,
+                                      dtype=self.compute_dtype)
+
     def _enc_level(self, x: torch.Tensor, d: int,
                    capture: Optional[dict] = None) -> torch.Tensor:
+        if d == 0 and self.cfg.phase_level0:
+            # s2d once on the raw input; returns the packed conv2 output
+            xp = self._phase_conv_relu("enc0_conv1", ph.space_to_depth(x), capture)
+            return self._phase_conv_relu("enc0_conv2", xp, capture)
         x = self._conv3_relu(f"enc{d}_conv1", x, capture)
         return self._conv3_relu(f"enc{d}_conv2", x, capture)
 
     def forward(self, x: torch.Tensor, capture: Optional[dict] = None) -> torch.Tensor:
         cfg = self.cfg
+        phase = cfg.phase_level0
+        if phase and (x.shape[1] % 2 or x.shape[2] % 2):
+            raise ValueError(f"phase_level0 needs even H, W (got {x.shape[1]}x"
+                             f"{x.shape[2]}); every valid U-Net input size is even")
         # Reject sizes the valid-conv geometry can't carry (pooling would
         # silently floor odd extents and misalign the skips).
         for dim in (1, 2):
@@ -235,13 +290,30 @@ class UNet(nn.Module):
             else:
                 x = self._enc_level(x, d, capture)
             if cfg.skip_variant == "paper":
-                skips.append(x)
-            x = _max_pool2(x)
+                skips.append(x)                  # packed at d = 0 under phase
+            # pool0 packed is a max over the phase groups: the result is the
+            # unpacked level-1 tensor
+            x = ph.phase_pool(x) if phase and d == 0 else _max_pool2(x)
             if cfg.skip_variant == "parity":
                 skips.append(x)
         x = self._conv3_relu("bottleneck_conv1", x, capture)
         x = self._conv3_relu("bottleneck_conv2", x, capture)
         for d in reversed(range(cfg.depth)):
+            if phase and d == 0:
+                # packed dec0: the skip arrives packed and is cropped in the
+                # packed domain ('paper'), or is zero-padded at full
+                # resolution and packed here ('parity'); the concat is split
+                x = self._phase_upconv("up0", x)
+                if capture is not None:
+                    capture["up0"] = x
+                if cfg.skip_variant == "paper":
+                    skip = center_crop_or_pad(skips[0], x.shape[1:3])
+                else:
+                    skip = ph.space_to_depth(center_crop_or_pad(
+                        skips[0], (2 * x.shape[1], 2 * x.shape[2])))
+                x = self._phase_split_concat_conv_relu("dec0_conv1", skip, x, capture)
+                x = self._phase_conv_relu("dec0_conv2", x, capture)
+                continue
             x = self._upconv(f"up{d}", x)
             if capture is not None:
                 capture[f"up{d}"] = x
@@ -252,10 +324,13 @@ class UNet(nn.Module):
                 x = self._conv3_relu(f"dec{d}_conv1", torch.cat([skip, x], -1), capture)
             x = self._conv3_relu(f"dec{d}_conv2", x, capture)
         w, b = self._wb("head")
-        x = F.linear(x, w.reshape(w.shape[0], w.shape[1]), b)
+        if phase:
+            x = ph.phase_head_matmul(x, w.permute(2, 3, 1, 0), b)
+        else:
+            x = F.linear(x, w.reshape(w.shape[0], w.shape[1]), b)
         if capture is not None:
             capture["head"] = x
-        return x.float()
+        return (ph.depth_to_space(x) if phase else x).float()
 
 
 def _check_config(cfg: ModelConfig) -> None:
@@ -276,6 +351,6 @@ def _check_config(cfg: ModelConfig) -> None:
     if cfg.conv_bwd != "xla":
         raise NotImplementedError(
             "conv_bwd 'mm'/'auto' is not ported yet (ROADMAP queue 1, item 13)")
-    if cfg.phase_level0:
-        raise NotImplementedError(
-            "phase_level0 is not ported yet (ROADMAP queue 1, item 8)")
+    if cfg.phase_level0 and cfg.conv_impl != "xla":
+        raise ValueError("phase_level0 requires conv_impl='xla' (the phase path "
+                         "replaces the level-0 convs)")

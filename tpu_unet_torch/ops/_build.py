@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
-        for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16"):
+        for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16", "conv_kxk_fused_s8"):
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             fn.restype = i

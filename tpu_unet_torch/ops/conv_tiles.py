@@ -21,9 +21,11 @@ Two routes compute the int8 conv:
   hand-written CUDA kernel in ``tpu_unet_torch/csrc/conv3x3_fused.cu``. On
   a CPU tensor it runs `conv3x3_fused_plain`; on a CUDA tensor it launches
   the kernel or raises, and counts the launch in ``conv3x3_fused.launches``.
-* `conv3x3_int8_xla` (``impl='xla'``): an im2col and ``torch._int_mm``
-  (cuBLASLt's int8 GEMM with int32 output on the card), the counterpart of
-  XLA's int8 conv, followed by the same epilogue in PyTorch.
+* `conv3x3_int8_xla` (``impl='xla'``): `conv_int8_acc`, an im2col and
+  ``torch._int_mm`` (cuBLASLt's int8 GEMM with int32 output on the card),
+  the counterpart of XLA's int8 conv, followed by the same epilogue in
+  PyTorch. It takes 3x3 and 2x2 kernels, as the JAX function does; K3
+  takes 3x3 only.
 """
 
 from __future__ import annotations
@@ -86,20 +88,25 @@ def epilogue(acc: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     return y.to(torch.bfloat16)
 
 
-def _check_shapes(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
-                  beta: torch.Tensor) -> None:
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, alpha: Optional[torch.Tensor],
+                  beta: Optional[torch.Tensor], sizes: Tuple[int, ...] = (3,)) -> None:
+    """x NHWC, w HWIO [k, k, Cin, Cout] with k in `sizes`, alpha and beta
+    [Cout] (None: not checked), and an image at least k x k."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B, H, W, Cin], got shape {tuple(x.shape)}")
     cin = x.shape[3]
-    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, cin):
-        raise ValueError(f"w must be HWIO [3, 3, {cin}, Cout], got shape "
+    kh = w.shape[0] if w.dim() == 4 else None
+    if kh not in sizes or tuple(w.shape[1:3]) != (kh, cin):
+        want = (f"{sizes[0]}, {sizes[0]}" if len(sizes) == 1
+                else f"k, k (k in {sizes})")
+        raise ValueError(f"w must be HWIO [{want}, {cin}, Cout], got shape "
                          f"{tuple(w.shape)}")
     cout = w.shape[3]
     for name, t in (("alpha", alpha), ("beta", beta)):
-        if tuple(t.shape) != (cout,):
+        if t is not None and tuple(t.shape) != (cout,):
             raise ValueError(f"{name} must be [{cout}], got shape {tuple(t.shape)}")
-    if x.shape[1] < 3 or x.shape[2] < 3:
-        raise ValueError(f"a 3x3 valid conv needs H, W >= 3, got "
+    if x.shape[1] < kh or x.shape[2] < kh:
+        raise ValueError(f"a {kh}x{kh} valid conv needs H, W >= {kh}, got "
                          f"{x.shape[1]}x{x.shape[2]}")
 
 
@@ -133,20 +140,21 @@ def _row_blocks(bsz: int, ho: int, row_bytes: int
             yield b, b + 1, y0, min(y0 + nr, ho)
 
 
-def conv3x3_int8_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
-                     beta: torch.Tensor, out_kind: str = "bf16") -> torch.Tensor:
-    """The int8 conv through the library: im2col (tap-major, the HWIO order)
-    and ``torch._int_mm`` int8 x int8 -> int32, then `epilogue`. The im2col
-    is built in blocks of output rows of at most IM2COL_BYTES. On the card
-    ``_int_mm`` needs M > 16 and K, N multiples of 8: K and N are padded
-    with zeros and M with rows, which adds nothing to the sums."""
-    _check_shapes(x_q, w_q, alpha, beta)
+def conv_int8_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The int32 sums of the int8 k x k valid conv (k in 2, 3) through the
+    library: im2col (tap-major, the HWIO order) and ``torch._int_mm`` int8 x
+    int8 -> int32. The im2col is built in blocks of output rows of at most
+    IM2COL_BYTES, and reads `x_q` through its strides (a cropped view is
+    fine). On the card ``_int_mm`` needs M > 16 and K, N multiples of 8: K
+    and N are padded with zeros and M with rows, which adds nothing to the
+    sums."""
+    _check_shapes(x_q, w_q, None, None, sizes=(2, 3))
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype} and {w_q.dtype}")
     bsz, h, wd, cin = x_q.shape
-    cout = w_q.shape[3]
-    ho, wo = h - 2, wd - 2
-    k = 9 * cin
+    kh, cout = w_q.shape[0], w_q.shape[3]
+    ho, wo = h - kh + 1, wd - kh + 1
+    k = kh * kh * cin
     kp, np_ = -(-k // 8) * 8, -(-cout // 8) * 8
     wm = torch.zeros((np_, kp), dtype=torch.int8, device=w_q.device)
     wm[:cout, :k] = w_q.reshape(k, cout).t()
@@ -156,9 +164,9 @@ def conv3x3_int8_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
         rows = y1 - y0
         cols = (torch.zeros if kp > k else torch.empty)(
             (b1 - b0, rows, wo, kp), dtype=torch.int8, device=x_q.device)
-        for dy in range(3):
-            for dx in range(3):
-                t = (dy * 3 + dx) * cin
+        for dy in range(kh):
+            for dx in range(kh):
+                t = (dy * kh + dx) * cin
                 cols[..., t:t + cin] = x_q[b0:b1, y0 + dy:y1 + dy, dx:dx + wo]
         a = cols.view(-1, kp)
         m = a.shape[0]
@@ -166,7 +174,16 @@ def conv3x3_int8_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
             a = torch.cat([a, a.new_zeros((17 - m, kp))])
         out = torch._int_mm(a, wm)[:m, :cout]
         acc[b0:b1, y0:y1] = out.view(b1 - b0, rows, wo, cout)
-    return epilogue(acc, alpha, beta, _resolve_out_kind(x_q, out_kind))
+    return acc
+
+
+def conv3x3_int8_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
+                     beta: torch.Tensor, out_kind: str = "bf16") -> torch.Tensor:
+    """The int8 conv through the library, `conv_int8_acc` then `epilogue`.
+    Like the JAX function it takes any kernel size the model has: 3x3, and
+    the 2x2 packed kernels of the phase-packed level 0."""
+    _check_shapes(x_q, w_q, alpha, beta, sizes=(2, 3))
+    return epilogue(conv_int8_acc(x_q, w_q), alpha, beta, _resolve_out_kind(x_q, out_kind))
 
 
 # --- K3 ---------------------------------------------------------------------

@@ -108,8 +108,8 @@ def batch_seed(seed: int, epoch: int, batch: int) -> int:
 
 
 class Trainer:
-    """End-to-end training for one fold/run, on `device` (default: the CUDA
-    card when there is one, else the CPU)."""
+    """End-to-end training for one fold/run, on `device` (default 'cuda';
+    without a card pass ``device='cpu'``)."""
 
     def __init__(
         self,
@@ -131,9 +131,9 @@ class Trainer:
         self.out_dir = out_dir
         self.verbose = verbose
         self.nan_check = nan_check
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device=\"cpu\" to train on the CPU")
+        self.device = torch.device(device or "cuda")
 
         gen = torch.Generator().manual_seed(train_cfg.seed ^ 0xBEEF)
         self.model = UNet(model_cfg, generator=gen).to(self.device)
