@@ -77,8 +77,30 @@ Phases, each printing its own lines:
      per chunk against its plain version and the library route, a DIC-HeLa
      train step of the phase-packed model against the plain one ('xla'),
      and the deep-shootout probe (python -m tpu_unet_torch.probes.deep_shootout)
-     at batch 16.
-The line before the last is a JSON summary of the nine kernels; the last line is
+     at batch 16;
+ 18. the row gather of the gather probe against its plain version, bit for
+     bit (NaN in the same places): the probe's 327,184-point gathers at C 2,
+     8 and 128, its row gathers and [4096,128] shapes, ragged C (1, 3, 5), a
+     misaligned view, int64, negative and out-of-range indices; its times at
+     C 2 and 128 against torch.index_select and the bound; the gather probe
+     (python -m tpu_unet_torch.probes.gather_probe), every mismatch 0;
+ 19. the three enc0 stage kernels of the Mosaic probes (conv1, conv2,
+     pool/quantize) against their plain versions at the probes' block
+     [8, 512, 64], at K4's serving chunk (bf16 x [16,572,572,1], C 64) and
+     at ragged shapes (C 16 and 24, odd extents): conv1 within one bf16 ulp,
+     conv2 in f32 within 1e-5 of its scale and in ReLU-bf16 within one bf16
+     ulp, pool/quantize bit for bit (values on .5 after scaling included);
+     each stage's time at the chunk against its plain version, the bound
+     and cuDNN's conv or max-pool where one computes the same function; the
+     mosaic probe (python -m tpu_unet_torch.probes.mosaic_probe): every
+     piece against its oracle, K4 and K5 at the scripts' sizes, and the
+     staged chain at the chunk against K4, timed in turns with K4 and the
+     library level 0.
+The line before the last is a JSON summary of the thirteen kernels
+(conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
+concat_quantize, pair_batch_channels, unpair_batch_channels,
+interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
+enc0_conv2_stage, enc0_pool_quant_stage); the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -1715,6 +1737,288 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
     return tiles_s, kxk, train_ms, probe, probe_launches
 
 
+# The last probes (phases 18-19): the gather probe's warp canvas and the
+# enc0 chain's stage kernels at K4's serving chunk.
+GATHER_S = 572
+ENC0_C = 64
+
+
+def gather_cost(src, idx):
+    """(bytes, operations) of gathering the rows `idx` of f32 `src` [N, C]:
+    the 32-byte sectors that the distinct in-range rows cover, each read
+    once (a row drawn twice, or a source that fits in L2, costs one read),
+    4C bytes written and the index read once per output row."""
+    n, c = src.shape
+    i = idx.long()
+    rows = torch.unique(torch.where(i < 0, i + n, i)[(i >= -n) & (i < n)])
+    start = src.data_ptr() % 32 + rows * (4 * c)
+    first, last = start // 32, (start + 4 * c - 1) // 32
+    span = torch.arange(int((last - first).max()) + 1 if rows.numel() else 0,
+                        device=idx.device)
+    sectors = first[:, None] + span
+    n_sectors = torch.unique(sectors[sectors <= last[:, None]]).numel()
+    return 32 * n_sectors + idx.numel() * (4 * c + idx.element_size()), 0
+
+
+def _exact(got, ref) -> float:
+    """Max |got - ref| over the values where both are finite; raises unless
+    the two are equal bit for bit, NaN in the same places."""
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    ok = torch.isfinite(ref)
+    return (got[ok] - ref[ok]).abs().max().item() if ok.any() else 0.0
+
+
+@torch.inference_mode()
+def phase18_gather():
+    """The row-gather kernel against its plain version, bit for bit, at the
+    gather probe's shapes, ragged C, a misaligned view, int64 indices and
+    negative and out-of-range ones; its times at the probe's 327,184
+    points against torch.index_select and the bound; the gather probe.
+    Returns (max abs error, times, probe records, probe launches)."""
+    from tpu_unet_torch.ops import gather
+    from tpu_unet_torch.probes import gather_probe
+
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    s = GATHER_S
+    n_pts = s * s
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    def ints(lo, hi, n, dtype=torch.int32):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEVICE, dtype=dtype)
+
+    idx = ints(0, n_pts - s - 2, n_pts)
+    buf = rand(4096 * 128 + 1)
+    cases = [(f"section 1, {n_pts} points, C {c}", rand(n_pts, c), idx) for c in (2, 8, 128)]
+    img = rand(s, s)
+    cases += [(f"section 2, {k * s} rows of [{s},{s}]", img, ints(0, s - 1, k * s))
+              for k in (1, 2)]
+    srcp = rand(4096, 128)
+    cases += [(f"sections 3-4, {m} rows of [4096,128]", srcp, ints(0, 4096, m))
+              for m in (128, 1024)]
+    cases += [(f"ragged C {c}", rand(4096, c), ints(0, 4096, 5000)) for c in (1, 3, 5)]
+    cases += [("misaligned src view [4096,128] (+4 bytes)", buf[1:].view(4096, 128),
+               ints(0, 4096, 3000)),
+              ("int64 indices, C 8", rand(4096, 8), ints(0, 4096, 3000, torch.int64)),
+              ("negative and out-of-range indices, C 8", rand(4096, 8),
+               ints(-4196, 4196, 3000)),
+              ("negative and out-of-range int64 indices, C 3", rand(4096, 3),
+               ints(-4196, 4196, 3000, torch.int64))]
+    err = 0.0
+    for label, src, i in cases:
+        got = gather.row_gather(src, i)
+        ref = gather.row_gather_plain(src, i)
+        torch.cuda.synchronize()
+        e = _exact(got, ref)
+        err = max(err, e)
+        log(f"phase 18: row_gather {label}: src {list(src.shape)}, idx {list(i.shape)} "
+            f"{str(i.dtype)[6:]}: equal to the plain version (NaN share "
+            f"{torch.isnan(ref[:, 0]).float().mean().item():.3f})")
+        del got, ref
+    times = {}
+    for c in (2, 128):
+        src = rand(n_pts, c)
+        t = {"kernel": _time_ms(lambda: gather.row_gather(src, idx), 20),
+             "plain": _time_ms(lambda: gather.row_gather_plain(src, idx), 5),
+             "library": _time_ms(lambda: torch.index_select(src, 0, idx), 20)}
+        t["bound"], t["bound_by"] = bound(*gather_cost(src, idx), "f32")
+        # a call this small can be bound by the host: the device's own time
+        # per call, from the profiler
+        for key, fn in (("kernel", lambda: gather.row_gather(src, idx)),
+                        ("library", lambda: torch.index_select(src, 0, idx))):
+            t[f"{key}_device"] = _profile(lambda r: fn(), 20)[1] / 20
+        times[f"C {c}"] = t
+        log(f"phase 18: row_gather {n_pts} points of C {c}: kernel {t['kernel']:.4f} ms "
+            f"per call ({t['kernel_device']:.4f} ms on the device), torch.index_select "
+            f"{t['library']:.4f} ms ({t['library_device']:.4f}), plain {t['plain']:.4f} ms, "
+            f"bound {t['bound']:.4f} ms ({t['bound_by']})")
+        del src
+    del cases, img, srcp, buf
+    torch.cuda.empty_cache()
+    gather.row_gather.launches = 0
+    probe = gather_probe.run(size=s)
+    launches = gather.row_gather.launches
+    bad = [r for r in probe if r["mismatch"]]
+    if bad:
+        raise AssertionError(f"gather-probe routes differ from their reference: {bad}")
+    log(f"phase 18: gather probe, S {s}: {len(probe)} routes, every mismatch 0; "
+        f"{launches} row_gather launches")
+    return err, times, probe, launches
+
+
+def _within_bf16_ulp(got, ref, floor_tol: float = 1e-5) -> bool:
+    """Every value within one bf16 ulp of `ref`'s (2^(e - 8) for |ref| =
+    m 2^e, m in [0.5, 1)), or within `floor_tol` of the output's scale
+    (values near 0, whose sign the f32 sums' order decides)."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(r)
+    floor = floor_tol * max(r.abs().max().item(), 1.0)
+    return bool(((g - r).abs() <= torch.ldexp(torch.ones_like(r), e - 8) + floor).all())
+
+
+def stage_costs(bsz: int, n: int, c: int):
+    """{stage form: (bytes, operations, kind)} of the three stages at bf16 x
+    [bsz, n, n, 1] and C channels: conv1 (with bias) -> [bsz, n-2, n-2, C]
+    bf16; conv2 -> [bsz, n-4, n-4, C] f32 or bf16; the pool of a bf16 map,
+    alone and with the int8 skip."""
+    h1, h2 = bsz * (n - 2) ** 2 * c, bsz * (n - 4) ** 2 * c
+    pooled = h2 // 4
+    return {
+        "conv1": (bsz * n * n * 2 + 10 * c * 4 + h1 * 2, 2 * 9 * h1, "f32"),
+        "conv2 f32": (h1 * 2 + 9 * c * c * 2 + h2 * 4, 2 * 9 * c * h2, "bf16"),
+        "conv2 relu_bf16": (h1 * 2 + 9 * c * c * 2 + h2 * 2, 2 * 9 * c * h2, "bf16"),
+        "pool": (h2 * 2 + pooled * 2, 3 * pooled, "f32"),
+        "pool + int8 skip": (h2 * 2 + h2 + pooled * 2, h2 + 3 * pooled, "f32"),
+    }
+
+
+@torch.inference_mode()
+def phase19_enc0_stages():
+    """The three enc0 stage kernels against their plain versions at the
+    Mosaic probes' block, at K4's serving chunk and at ragged shapes; the
+    mosaic probe; each stage's time at the chunk against its plain version,
+    the bound and the library call where one computes the same function.
+    Returns (max abs errors, times, probe records, probe launches)."""
+    from tpu_unet_torch.ops import enc0_stages as st
+    from tpu_unet_torch.ops.fused_level0 import _inverse
+    from tpu_unet_torch.probes import mosaic_probe
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    bsz, n, c = BATCH_TILES, TILE_IN, ENC0_C
+    errs = {"conv1": 0.0, "conv2": 0.0, "pool_quant": 0.0}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    def check(stage, label, got, ref, ok):
+        err = (got.float() - ref.float()).abs().max().item()
+        errs[stage] = max(errs[stage], err)
+        log(f"phase 19: {stage} {label}: max|err| {err:.3g}")
+        if not (got.dtype == ref.dtype and got.shape == ref.shape and ok):
+            raise AssertionError(f"the {stage} stage kernel differs from its plain version "
+                                 f"at {label}")
+
+    conv1_cases = [("block, f32 x [1,12,516]", randn(1, 12, 516), 64, False, False),
+                   (f"chunk, bf16 x [{bsz},{n},{n}], bias", torch.rand(
+                       (bsz, n, n), generator=gen, device=DEVICE).to(torch.bfloat16), c,
+                    True, False),
+                   ("taps, slab [1,10,514,9]", randn(1, 10, 514, 9), 64, False, True),
+                   ("ragged C 16, x [2,15,40] (odd 13x38)", randn(2, 15, 40), 16, True, False),
+                   ("ragged C 24, x [1,9,23] (odd 7x21)", randn(1, 9, 23), 24, True, False)]
+    for label, x, cc, bias, taps in conv1_cases:
+        w9 = randn(9, cc, scale=0.5)
+        b = randn(cc, scale=0.1) if bias else None
+        got, ref = st.conv1_stage(x, w9, b, taps=taps), st.conv1_stage_plain(x, w9, b, taps=taps)
+        torch.cuda.synchronize()
+        check("conv1", label, got, ref, _within_bf16_ulp(got, ref))
+        del x, got, ref
+    conv2_cases = [("block, h [1,10,514,64]", (1, 10, 514), 64, 64),
+                   (f"chunk, h [{bsz},{n - 2},{n - 2},{c}]", (bsz, n - 2, n - 2), c, c),
+                   ("ragged 16 -> 24, h [2,13,37] (odd 11x35)", (2, 13, 37), 16, 24),
+                   ("ragged 24 -> 16, h [1,12,19] (odd 10x17)", (1, 12, 19), 24, 16)]
+    for label, shape, cin, cout in conv2_cases:
+        h = torch.relu(randn(*shape, cin)).to(torch.bfloat16)
+        w = randn(3, 3, cin, cout, scale=math.sqrt(2 / (9 * cin))).to(torch.bfloat16)
+        for relu_bf16 in (False, True):
+            got = st.conv2_stage(h, w, relu_bf16=relu_bf16)
+            ref = st.conv2_stage_plain(h, w, relu_bf16=relu_bf16)
+            torch.cuda.synchronize()
+            ok = (_within_bf16_ulp(got, ref) if relu_bf16 else
+                  (got - ref).abs().max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0))
+            check("conv2", f"{label}, {'relu_bf16' if relu_bf16 else 'f32'}", got, ref, ok)
+            del got, ref
+        del h, w
+    halves = (torch.randint(-40, 600, (2, 12, 34, 64), generator=gen, device=DEVICE) / 4.0)
+    pool_cases = [("block, bf16 h [1,8,512,64]", torch.rand(
+                       (1, 8, 512, 64), generator=gen, device=DEVICE).to(torch.bfloat16), 50.0),
+                  ("block, f32 h [1,8,512,64]", randn(1, 8, 512, 64), 37.5),
+                  (f"chunk, bf16 h [{bsz},{n - 4},{n - 4},{c}]", torch.relu(
+                      randn(bsz, n - 4, n - 4, c)).to(torch.bfloat16), 1 / 0.0123),
+                  ("ragged C 16, f32", randn(2, 6, 10, 16), 50.0),
+                  ("ragged C 24, bf16", randn(1, 4, 6, 24).to(torch.bfloat16), 50.0),
+                  ("values on .5 after scaling and past 127, f32", halves, 2.0),
+                  ("values on .5 after scaling and past 127, bf16", halves.to(torch.bfloat16),
+                   2.0)]
+    for label, h, scale in pool_cases:
+        err, equal = 0.0, True
+        for skip, pool in ((None, True), ("bf16", True), ("bf16", False), ("int8", True),
+                           ("int8", False)):
+            kw = {"skip": skip, "pool": pool, "skip_scale": scale if skip == "int8" else None}
+            got, ref = st.pool_quant_stage(h, **kw), st.pool_quant_stage_plain(h, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                if (g is None) != (r is None):
+                    raise AssertionError(f"pool_quant outputs differ at {label}, {kw}")
+                if g is not None:
+                    equal = equal and g.dtype == r.dtype and torch.equal(g, r)
+                    err = max(err, (g.float() - r.float()).abs().max().item())
+            del got, ref
+        errs["pool_quant"] = max(errs["pool_quant"], err)
+        log(f"phase 19: pool_quant {label}, s {scale:.4g}, every skip and pool mode: "
+            f"max|err| {err}")
+        if not equal:
+            raise AssertionError(f"the pool_quant stage kernel differs from its plain "
+                                 f"version at {label}")
+        del h
+    log("phase 19: ok, conv1 and conv2's ReLU-bf16 form within one bf16 ulp (inside "
+        f"BF16_TOL = {BF16_TOL} of the scale), conv2 f32 within 1e-5 of its scale, "
+        "pool/quant bit-exact")
+
+    times = {}
+    x = torch.rand((bsz, n, n), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w9, b1 = randn(9, c, scale=0.5), randn(c, scale=0.1)
+    w = randn(3, 3, c, c, scale=math.sqrt(2 / (9 * c))).to(torch.bfloat16)
+    costs = stage_costs(bsz, n, c)
+    h1 = st.conv1_stage(x, w9, b1)
+    h2 = st.conv2_stage(h1, w, relu_bf16=True)
+    inv = _inverse(h2.float().max().item() / 110.0)
+    # the library calls in PyTorch's layout, prepared once: NCHW views of the
+    # NHWC maps (channels_last) and the weights in channels_last
+    h1_nchw, h2_nchw = h1.permute(0, 3, 1, 2), h2.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    forms = {
+        "conv1": (lambda: st.conv1_stage(x, w9, b1),
+                  lambda: st.conv1_stage_plain(x, w9, b1), None),
+        "conv2 f32": (lambda: st.conv2_stage(h1, w), lambda: st.conv2_stage_plain(h1, w),
+                      lambda: F.conv2d(h1_nchw, w_oihw)),
+        "conv2 relu_bf16": (lambda: st.conv2_stage(h1, w, relu_bf16=True),
+                            lambda: st.conv2_stage_plain(h1, w, relu_bf16=True), None),
+        "pool": (lambda: st.pool_quant_stage(h2), lambda: st.pool_quant_stage_plain(h2),
+                 lambda: F.max_pool2d(h2_nchw, 2)),
+        "pool + int8 skip": (lambda: st.pool_quant_stage(h2, skip="int8", skip_scale=inv),
+                             lambda: st.pool_quant_stage_plain(h2, skip="int8",
+                                                               skip_scale=inv), None),
+    }
+    for key, (kern, plain, lib) in forms.items():
+        t = {"kernel": _time_ms(kern, 10), "plain": _time_ms(plain, 3),
+             "library": _time_ms(lib, 10) if lib is not None else None}
+        nbytes, ops, kind = costs[key]
+        t["bound"], t["bound_by"] = bound(nbytes, ops, kind)
+        times[key] = t
+        log(f"phase 19: {key} at the chunk: kernel {t['kernel']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms, library "
+            + (f"{t['library']:.4f} ms" if t["library"] is not None else "none")
+            + f", bound {t['bound']:.4f} ms ({t['bound_by']})")
+    del x, h1, h2, h1_nchw, h2_nchw, forms
+    torch.cuda.empty_cache()
+
+    for fn in (st.conv1_stage, st.conv2_stage, st.pool_quant_stage):
+        fn.launches = 0
+    probe = mosaic_probe.run()
+    launches = {"enc0_conv1_stage": st.conv1_stage.launches,
+                "enc0_conv2_stage": st.conv2_stage.launches,
+                "enc0_pool_quant_stage": st.pool_quant_stage.launches}
+    bad = [r["name"] for r in probe if r["mismatch"]]
+    if bad:
+        raise AssertionError(f"mosaic-probe lines beyond their bar: {bad}")
+    chain = {r["name"]: r for r in probe if r["section"] == "chunk"}
+    times["chain"] = {k: r["ms"] for k, r in chain.items()}
+    log(f"phase 19: mosaic probe: {len(probe)} lines, every one within its bar; launches "
+        f"{launches}")
+    return errs, times, probe, launches
+
+
 # (name, source, the TPU kernel it replaces, the formulation it runs on)
 RESEARCH_KERNELS = [
     ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
@@ -1748,6 +2052,42 @@ def research_kernel_lines(errs, launches, times, tiles_s):
     } for name, source, replaces, path in RESEARCH_KERNELS]
 
 
+# (name, key in the phase's errors, its timed forms (the first is the
+# line's), the pallas_calls and kernel bodies it stands for)
+STAGE_KERNELS = [
+    ("enc0_conv1_stage", "conv1", ["conv1"],
+     "scripts/tpu_mosaic_probe.py:49 (k_conv1 :61)",
+     ["scripts/tpu_mosaic_probe3.py:60 (A :77, G :208, H :252)"]),
+    ("enc0_conv2_stage", "conv2", ["conv2 f32", "conv2 relu_bf16"],
+     "scripts/tpu_mosaic_probe.py:49 (k_pair :75)",
+     ["scripts/tpu_mosaic_probe3.py:60 (B :110, C :131, D :154, G :208, H :252)"]),
+    ("enc0_pool_quant_stage", "pool_quant", ["pool", "pool + int8 skip"],
+     "scripts/tpu_mosaic_probe.py:49 (k_pool :102, k_q8 :112, k_multi :121)",
+     ["scripts/tpu_mosaic_probe3.py:60 (E :176, F :192, G :208, H :252)"]),
+]
+
+
+def stage_kernel_lines(errs, times, launches):
+    chunk = f"bf16 x [{BATCH_TILES},{TILE_IN},{TILE_IN},1], C {ENC0_C}"
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "tpu_unet_torch/csrc/enc0_stages.cu",
+        "replaces": replaces,
+        "replaces_also": also,
+        "launches": launches[name],
+        "max_abs_err": errs[key],
+        "ms": times[forms[0]]["kernel"],
+        "plain_ms": times[forms[0]]["plain"],
+        "bound_ms": times[forms[0]]["bound"],
+        "bound_by": times[forms[0]]["bound_by"],
+        "library_ms": times[forms[0]]["library"],
+        "launches_by_path": {"mosaic_probe": launches[name]},
+        "shape": f"{forms[0]} at K4's serving chunk, {chunk}",
+        "forms": {k: times[k] for k in forms},
+    } for name, key, forms, replaces, also in STAGE_KERNELS]
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -1777,6 +2117,8 @@ def main() -> None:
     phase_tiles_s, kxk_ms, phase_train_ms, probe, probe_launches = phase17_time_phase(
         cfg, model, data, qp, qp_phase)
     del model
+    gather_err, gather_ms, gather_probe, gather_launches = phase18_gather()
+    stage_errs, stage_ms, mosaic_probe, stage_launches = phase19_enc0_stages()
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
     k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
     log(json.dumps({"kernels": [{
@@ -1846,7 +2188,26 @@ def main() -> None:
         "evaluate_tiles_per_s": phase_tiles_s,
         "class_map_agreement_vs_int8": phase_agree,
         "probe": [{k: r[k] for k in ("section", "route", "ms", "tops")} for r in probe],
-    }],
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "tpu_unet_torch/csrc/row_gather.cu",
+        "replaces": "scripts/tpu_gather_probe.py:116",
+        "replaces_also": ["scripts/tpu_gather_probe.py:130", "scripts/tpu_gather_probe.py:155"],
+        "launches": gather_launches,
+        "max_abs_err": gather_err,
+        "ms": gather_ms["C 2"]["kernel"],
+        "plain_ms": gather_ms["C 2"]["plain"],
+        "bound_ms": gather_ms["C 2"]["bound"],
+        "bound_by": gather_ms["C 2"]["bound_by"],
+        "library_ms": gather_ms["C 2"]["library"],
+        "launches_by_path": {"gather_probe": gather_launches},
+        "shape": f"{GATHER_S ** 2} rows of C 2 from [{GATHER_S ** 2}, 2]",
+        "ms_by_case": gather_ms,
+        "probe": [{k: r[k] for k in ("section", "label", "route", "ms")} for r in gather_probe],
+    }] + stage_kernel_lines(stage_errs, stage_ms, stage_launches),
+        "enc0_chain_at_chunk_ms": stage_ms["chain"],
+        "mosaic_probe": [{k: r[k] for k in ("section", "name", "ms")} for r in mosaic_probe],
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
         "phase_level0_train_step_ms": phase_train_ms}))
     log(json.dumps({"ok": True, "device": {

@@ -107,7 +107,9 @@ def test_build_names_library_by_source_hash():
                                                    "conv_kxk_fused.cu",
                                                    "edt_column_pass.cu",
                                                    "enc0_chain.cu",
-                                                   "interleave.cu"]
+                                                   "enc0_stages.cu",
+                                                   "interleave.cu",
+                                                   "row_gather.cu"]
     path = _build.library_path()
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert _build.BUILD_DIR.endswith(os.path.join("build", "tpu_unet_torch"))

@@ -2,7 +2,9 @@
 and its gradient, K2 (the EDT column pass), K3 (the fused int8/bf16 conv
 of quantized serving), K4, K5 and K6a-c (the fused enc0 chain, the fused
 concat + requantize and the pairing copies of the research int8 forward),
-and the fused k x k int8 conv of the phase-packed level 0. These tests
+the fused k x k int8 conv of the phase-packed level 0, the row gather of
+the gather probe and the three enc0 stage kernels of the Mosaic probes.
+These tests
 import no JAX
 (the machine with the card has none) and skip without a CUDA device. Run
 them on the card with
@@ -22,9 +24,11 @@ from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused,
                                          conv_kxk_fused_plain, conv_rows3_col)
 from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
                                            conv3x3_int8_xla)
+from tpu_unet_torch.ops import enc0_stages as st
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
-from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
+from tpu_unet_torch.ops.fused_level0 import (_inverse, concat_quantize, concat_quantize_plain,
                                              enc0_chain, enc0_chain_plain)
+from tpu_unet_torch.ops.gather import row_gather, row_gather_plain
 from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
                                            pair_batch_channels, pair_batch_channels_plain,
                                            unpair_batch_channels,
@@ -541,3 +545,159 @@ def test_phase_model_matches_plain_on_the_card(cuda):
     for (name, p), q in zip(model.named_parameters(), phase.parameters()):
         scale = p.grad.abs().max().item()
         torch.testing.assert_close(q.grad, p.grad, rtol=2e-4, atol=2e-4 * scale, msg=name)
+
+
+@pytest.mark.parametrize("c,offset", [(128, 0), (2, 0), (8, 0), (1, 0), (3, 0), (5, 0),
+                                      (128, 1), (8, 3)])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_row_gather_kernel_is_bit_exact(cuda, c, offset, idx_dtype):
+    """Bit for bit against the plain version, NaN in the same places: in
+    range, negative and out-of-range indices; a src view off its 16-byte
+    alignment by `offset` floats takes the scalar path."""
+    g = torch.Generator(device=cuda).manual_seed(c + offset)
+    n, m = 300, 1000
+    buf = torch.rand((n * c + offset,), generator=g, device=cuda)
+    src = buf[offset:].view(n, c)
+    idx = torch.randint(-n - 20, n + 20, (m,), generator=g, device=cuda).to(idx_dtype)
+    before = row_gather.launches
+    got = row_gather(src, idx)
+    assert row_gather.launches == before + 1
+    ref = row_gather_plain(src, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    assert 0 < torch.isnan(ref[:, 0]).float().mean() < 0.2
+    cols = torch.rand((n, 2 * c), generator=g, device=cuda)[:, :c]   # row stride 2c
+    torch.testing.assert_close(row_gather(cols, idx), row_gather_plain(cols, idx), rtol=0,
+                               atol=0, equal_nan=True)
+
+
+def test_row_gather_refuses_what_it_does_not_take(cuda):
+    src = torch.rand((10, 4), device=cuda)
+    idx = torch.arange(5, device=cuda)
+    before = row_gather.launches
+    with pytest.raises(ValueError):
+        row_gather(src.double(), idx)
+    with pytest.raises(ValueError):
+        row_gather(src, idx.float())
+    with pytest.raises(ValueError):
+        row_gather(src, idx.cpu())
+    assert row_gather.launches == before
+    assert row_gather(src, idx[:0]).shape == (0, 4)
+
+
+def _bf16_ulp_ok(got, ref, scale_tol=1e-5):
+    """Every value within one bf16 ulp of `ref`'s (2^(e - 8) for |ref| =
+    m 2^e, m in [0.5, 1)), or within `scale_tol` of the output's scale
+    (values near 0, where the f32 sums' order decides the sign)."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(r)
+    ulp = torch.ldexp(torch.ones_like(r), e - 8)
+    floor = scale_tol * max(r.abs().max().item(), 1.0)
+    return bool(((g - r).abs() <= ulp + floor).all())
+
+
+@pytest.mark.parametrize("taps,dtype,c", [(False, torch.float32, 64),
+                                          (False, torch.bfloat16, 64),
+                                          (False, torch.float32, 24), (True, torch.float32, 16)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv1_stage_kernel_matches_plain(cuda, taps, dtype, c, bias):
+    """Within one bf16 ulp: the kernel sums by fmaf, the plain version by
+    products and sums apart."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    shape = (2, 13, 37, 9) if taps else (2, 15, 39)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w9 = torch.randn((9, c), generator=g, device=cuda) * 0.5
+    b = torch.randn((c,), generator=g, device=cuda) * 0.1 if bias else None
+    before = st.conv1_stage.launches
+    got = st.conv1_stage(x, w9, b, taps=taps)
+    assert st.conv1_stage.launches == before + 1
+    ref = st.conv1_stage_plain(x, w9, b, taps=taps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _bf16_ulp_ok(got, ref)
+
+
+@pytest.mark.parametrize("shape,cin,cout", [((2, 13, 37), 64, 64), ((1, 11, 21), 16, 24),
+                                            ((2, 10, 34), 24, 16), ((1, 19, 7), 8, 64)])
+@pytest.mark.parametrize("relu_bf16", [False, True])
+def test_conv2_stage_kernel_matches_plain(cuda, shape, cin, cout, relu_bf16):
+    """f32 out within 1e-5 of the output's scale (summation order only);
+    ReLU-bf16 out within one bf16 ulp. Odd output extents, Cin not a
+    multiple of 16."""
+    g = torch.Generator(device=cuda).manual_seed(cin + cout)
+    h = torch.relu(torch.randn((*shape, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+         * (2 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+    before = st.conv2_stage.launches
+    got = st.conv2_stage(h, w, relu_bf16=relu_bf16)
+    assert st.conv2_stage.launches == before + 1
+    ref = st.conv2_stage_plain(h, w, relu_bf16=relu_bf16)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if relu_bf16:
+        assert _bf16_ulp_ok(got, ref)
+    else:
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip,pool", [(None, True), ("bf16", True), ("int8", True),
+                                       ("int8", False), ("bf16", False)])
+def test_pool_quant_stage_kernel_is_bit_exact(cuda, dtype, skip, pool):
+    """Bit for bit, with values that land on .5 after scaling (round half
+    to even) and past 127; C 24 and 64."""
+    for c, shape in ((64, (2, 12, 34)), (24, (1, 6, 10))):
+        g = torch.Generator(device=cuda).manual_seed(c)
+        h = (torch.randint(-40, 600, (*shape, c), generator=g, device=cuda) / 4.0).to(dtype)
+        kw = {"skip": skip, "pool": pool, "skip_scale": 2.0 if skip == "int8" else None}
+        before = st.pool_quant_stage.launches
+        got = st.pool_quant_stage(h, **kw)
+        assert st.pool_quant_stage.launches == before + 1
+        ref = st.pool_quant_stage_plain(h, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        if skip == "int8":
+            q = ref[0].float()
+            assert (q == 127).any() and (q == 0).any()
+            assert ((h.float() * 2.0) % 1 == 0.5).any()
+
+
+def test_stage_kernels_refuse_what_they_do_not_take(cuda):
+    h = torch.rand((1, 6, 8, 12), device=cuda)
+    before = (st.conv1_stage.launches, st.conv2_stage.launches, st.pool_quant_stage.launches)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        st.pool_quant_stage(h)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        st.conv1_stage(h[0, :, :, :1].permute(2, 0, 1), torch.rand((9, 12), device=cuda))
+    with pytest.raises(ValueError, match="up to"):
+        st.conv2_stage(torch.rand((1, 5, 5, 72), device=cuda).to(torch.bfloat16),
+                       torch.rand((3, 3, 72, 8), device=cuda).to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        st.conv1_stage(h[..., 0], torch.rand((9, 8)))
+    assert before == (st.conv1_stage.launches, st.conv2_stage.launches,
+                      st.pool_quant_stage.launches)
+
+
+def test_staged_chain_matches_enc0_chain(cuda):
+    """conv1 -> conv2 (ReLU, bf16) -> pool + int8 skip against K4 with b2 =
+    0: the same sums in the same order, so the pooled maps are equal; the
+    int8 skip quantizes bf16(h2), not h2, so it is off by at most 1."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    c = 64
+    x = torch.rand((2, 44, 76, 1), generator=g, device=cuda).to(torch.bfloat16)
+    w1 = (torch.randn((3, 3, 1, c), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    b1 = torch.randn((c,), generator=g, device=cuda) * 0.1
+    w2 = (torch.randn((3, 3, c, c), generator=g, device=cuda) * 0.06).to(torch.bfloat16)
+    b2 = torch.zeros((c,), device=cuda)
+    scale = enc0_chain(x, w1, b1, w2, b2)[0].float().max().item() / 110
+    skip, pooled = enc0_chain(x, w1, b1, w2, b2, skip_scale=scale)
+    h1 = st.conv1_stage(x[..., 0], w1.float().reshape(9, c), b1)
+    h2 = st.conv2_stage(h1, w2, relu_bf16=True)
+    s_skip, s_pooled = st.pool_quant_stage(h2, skip="int8", skip_scale=_inverse(scale))
+    torch.cuda.synchronize()
+    assert torch.equal(s_pooled, pooled)
+    assert (s_skip.float() - skip.float()).abs().max().item() <= 1

@@ -20,6 +20,9 @@ from tpu_unet_torch.ops import _build
 for mod in pkgutil.walk_packages(tpu_unet_torch.__path__, "tpu_unet_torch."):
     importlib.import_module(mod.name)
 assert _build._lib is None, "a kernel library was loaded at import"
+walked = {"tpu_unet_torch.ops.gather", "tpu_unet_torch.ops.enc0_stages",
+          "tpu_unet_torch.probes.gather_probe", "tpu_unet_torch.probes.mosaic_probe"}
+assert walked <= set(sys.modules), walked - set(sys.modules)
 
 from tpu_unet_torch.config import DatasetConfig, ModelConfig, TrainConfig
 from tpu_unet_torch.data import synthetic_dataset

@@ -1,0 +1,449 @@
+// The level-0 encoder chain as three stage kernels for Hopper (sm_90a).
+//
+// Replaces the Pallas piece kernels of the two Mosaic probes, which compile
+// K4's pieces one at a time at block [8, 512, 64]:
+//   scripts/tpu_mosaic_probe.py::main:  k_conv1, k_pair, k_pool, k_q8, k_multi
+//   scripts/tpu_mosaic_probe3.py::main: k_conv1_dot (A), k_conv2_nconcat (B),
+//     k_conv2_rows3 (C), k_conv2_im2col (D), k_pool_reshape (E),
+//     k_pool_scratch (F), k_chain (G), k_chain_q (H)
+// What they compute comes to three functions, one entry each:
+//
+//   enc0_conv1_stage      h1 = bf16(relu(sum_t x_t * w9[t] + b))   f32 sums of f32
+//                         products, taps t = 3*dy + dx in that order (fmaf), one
+//                         bf16 rounding; x_t is the shifted image (k_conv1) or
+//                         tap t of a 9-tap slab (A)
+//   enc0_conv2_stage      y = conv3x3(h, w) valid, bf16 x bf16 products, f32 sums;
+//                         stored as f32 (B, C, D) or as bf16(relu(y)) (k_pair)
+//   enc0_pool_quant_stage one pass over h (f32 or bf16) writing any of: the skip
+//                         as bf16(h) (k_multi, G), the skip as int8
+//                         clamp(rint(h * s), 0, 127) (k_q8, H), and the 2x2/2
+//                         max-pool as bf16 (k_pool, E, F, G and H's pooled map)
+//
+// What bounds them on the H100 at K4's serving chunk (x [16, 572, 572, 1],
+// C = 64): conv1 does 9 FMAs per output value against 2 bytes written, and
+// the pool/quantize pass no arithmetic to speak of, so both are bound by
+// bytes. conv2 does 2 * 9 * 64 = 1152 operations per output value against
+// 2 bytes read and 4 (f32) or 2 (bf16) written: 0.385 ms of bf16 tensor-core
+// work against 0.59 ms (f32 out) or 0.40 ms (bf16 out) of traffic, so bytes
+// bound it too, barely. The designs:
+//   * conv1: a thread owns 8 output channels of one pixel (one 16-byte
+//     store); neighbouring threads share the pixel's 9 inputs through L1;
+//   * conv2: K4's conv2 (csrc/enc0_chain.cu) with its input read from
+//     device memory: one block per SM walks over 8 x 32 output tiles with the
+//     weights resident in shared memory; per tile the (8+2) x (32+2) x CP
+//     bf16 input patch is staged with 16-byte loads (channels past Cin zero),
+//     and an implicit GEMM on mma.sync m16n8k16 bf16 -> f32 (M = 256 pixels,
+//     N = Cout, K = 9 * CP tap-major) runs K4's loop in K4's order, so the
+//     same inputs give K4's sums bit for bit;
+//   * pool/quantize: a thread owns 8 channels of one 2x2 window: it reads
+//     the window once (16- or 32-byte loads) and writes the four skip values
+//     and the pooled value.
+// Not yet here: wgmma, TMA, a cp.async ring.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_C2 = 64;                // conv2: the resident weights fit shared memory
+
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }  // keeps a NaN
+
+template <typename TX> __device__ __forceinline__ float load_x(const TX* p);
+template <> __device__ __forceinline__ float load_x<float>(const float* p) { return *p; }
+template <> __device__ __forceinline__ float load_x<uint16_t>(const uint16_t* p) {
+  return bf16_bits_to_float(*p);
+}
+
+// ---- conv1 -----------------------------------------------------------------
+// TAPS false: x [B, H, W] (f32 or bf16 bits), out [B, H-2, W-2, C].
+// TAPS true:  x [B, R, Q, 9] f32, out [B, R, Q, C].
+// w9 f32 [9, C], b f32 [C]; out bf16 bits. C % 8 == 0.
+template <typename TX, bool TAPS>
+__global__ void __launch_bounds__(THREADS)
+conv1_kernel(const TX* __restrict__ x, const float* __restrict__ w9,
+             const float* __restrict__ b, uint16_t* __restrict__ out, int H, int W,
+             int Ho, int Wo, int C, long long items) {
+  const int groups = C / 8;
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < items;
+       t += (long long)gridDim.x * THREADS) {
+    const long long p = t / groups;
+    const int c0 = (int)(t - p * groups) * 8;
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    const TX* xp;
+    if (TAPS) {
+      xp = x + p * 9;
+    } else {
+      const long long hw = (long long)Ho * Wo;
+      const long long bi = p / hw;
+      const int rem = (int)(p - bi * hw);
+      const int oy = rem / Wo, ox = rem - (rem / Wo) * Wo;
+      xp = x + (bi * H + oy) * W + ox;
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float v = TAPS ? load_x<TX>(xp + tap) : load_x<TX>(xp + (tap / 3) * W + tap % 3);
+      const float4 wa = __ldg(reinterpret_cast<const float4*>(w9 + tap * C + c0));
+      const float4 wb = __ldg(reinterpret_cast<const float4*>(w9 + tap * C + c0 + 4));
+      acc[0] = fmaf(v, wa.x, acc[0]);
+      acc[1] = fmaf(v, wa.y, acc[1]);
+      acc[2] = fmaf(v, wa.z, acc[2]);
+      acc[3] = fmaf(v, wa.w, acc[3]);
+      acc[4] = fmaf(v, wb.x, acc[4]);
+      acc[5] = fmaf(v, wb.y, acc[5]);
+      acc[6] = fmaf(v, wb.z, acc[6]);
+      acc[7] = fmaf(v, wb.w, acc[7]);
+    }
+    const float4 ba = __ldg(reinterpret_cast<const float4*>(b + c0));
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(b + c0 + 4));
+    const float bias[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = relu(__fadd_rn(acc[k], bias[k]));
+    uint4 o;
+    o.x = pack_bf16x2(acc[0], acc[1]);
+    o.y = pack_bf16x2(acc[2], acc[3]);
+    o.z = pack_bf16x2(acc[4], acc[5]);
+    o.w = pack_bf16x2(acc[6], acc[7]);
+    *reinterpret_cast<uint4*>(out + p * C + c0) = o;
+  }
+}
+
+// ---- conv2 -----------------------------------------------------------------
+constexpr int TH = 8;                     // output rows per tile: one per warp
+constexpr int TW = 32;                    // output columns per tile
+constexpr int PH = TH + 2, PW = TW + 2;   // input patch
+
+struct Geom2 {
+  int B, H, W, Ho, Wo, Cin, CP, Cout;
+  int tiles_r, tiles_c;
+  long long tiles;
+  int lda;          // bytes per patch pixel in shared memory: 2*CP + 16
+  int ldw;          // bytes per weight row (one output channel): 18*CP + 16
+};
+
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// h [B, H, W, Cin] bf16 bits; w2t bf16 bits [Cout, 9, CP] (each output
+// channel's K-contiguous row, zero past Cin); out [B, H-2, W-2, Cout] f32,
+// or bf16(relu(.)) bits when RELU_BF16.
+template <bool RELU_BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+conv2_kernel(const uint16_t* __restrict__ h, const uint16_t* __restrict__ w2t,
+             void* __restrict__ out, Geom2 g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* patch = smem;
+  unsigned char* w2s = smem + PH * PW * g.lda;
+
+  const int CP = g.CP;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = lane >> 2;
+  const int tq = lane & 3;
+  const int nt = g.Cout / 8;              // n8 tiles of output channels
+
+  const int row_vecs = 9 * CP * 2 / 16;   // uint4 per weight row
+  for (int i = threadIdx.x; i < g.Cout * row_vecs; i += THREADS) {
+    const int n = i / row_vecs, v = i - n * row_vecs;
+    reinterpret_cast<uint4*>(w2s + n * g.ldw)[v] =
+        reinterpret_cast<const uint4*>(w2t + (long long)n * 9 * CP)[v];
+  }
+
+  const int pix_vecs = CP / 8;            // uint4 per patch pixel
+  const int in_vecs = g.Cin / 8;
+  const int tiles_img = g.tiles_r * g.tiles_c;
+  for (long long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+    const int b = (int)(t / tiles_img);
+    const int rem = (int)(t - (long long)b * tiles_img);
+    const int y0 = (rem / g.tiles_c) * TH;
+    const int x0 = (rem % g.tiles_c) * TW;
+
+    __syncthreads();                      // the previous tile is done with the patch
+    for (int i = threadIdx.x; i < PH * PW * pix_vecs; i += THREADS) {
+      const int pix = i / pix_vecs, v = i - pix * pix_vecs;
+      const int r = pix / PW, c = pix - r * PW;
+      const int gy = y0 + r, gx = x0 + c;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gy < g.H && gx < g.W && v < in_vecs)
+        val = *reinterpret_cast<const uint4*>(
+            h + (((long long)b * g.H + gy) * g.W + gx) * g.Cin + v * 8);
+      *reinterpret_cast<uint4*>(patch + pix * g.lda + v * 16) = val;
+    }
+    __syncthreads();
+
+    // warp w computes tile row w, columns [16i, 16i + 16) for i = 0, 1
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - dy * 3;
+      for (int k0 = 0; k0 < CP; k0 += 16) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const unsigned char* p =
+              patch + ((warp + dy) * PW + i * 16 + grp + dx) * g.lda + k0 * 2 + tq * 4;
+          af[i][0] = ld32(p);
+          af[i][1] = ld32(p + 8 * g.lda);
+          af[i][2] = ld32(p + 16);
+          af[i][3] = ld32(p + 8 * g.lda + 16);
+        }
+        const unsigned char* q = w2s + grp * g.ldw + (tap * CP + k0) * 2 + tq * 4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j < nt) {
+            const uint32_t bf[2] = {ld32(q + j * 8 * g.ldw), ld32(q + j * 8 * g.ldw + 16)};
+            mma_bf16(acc[0][j], af[0], bf);
+            mma_bf16(acc[1][j], af[1], bf);
+          }
+        }
+      }
+    }
+
+    // Accumulator r of tile (i, j): column 16i + grp + 8*(r/2) of tile row
+    // `warp`, channel 8j + 2*tq + r%2.
+    const int oy = y0 + warp;
+    if (oy >= g.Ho) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          const int ch = j * 8 + tq * 2;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ox = x0 + i * 16 + grp + 8 * hh;
+            if (ox < g.Wo) {
+              const long long o = (((long long)b * g.Ho + oy) * g.Wo + ox) * g.Cout + ch;
+              const float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+              if constexpr (RELU_BF16)
+                *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(out) + o) =
+                    pack_bf16x2(relu(v0), relu(v1));
+              else
+                *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+            }
+          }
+        }
+      }
+  }
+}
+
+// ---- pool / quantize -------------------------------------------------------
+// h [B, H, W, C] (f32 or bf16 bits), H and W even, C % 8 == 0. SKIP 0: no
+// skip; 1: bf16(h); 2: int8 clamp(rint(h * s), 0, 127). pooled [B, H/2,
+// W/2, C] bf16 bits when `pool`.
+template <typename TH_, int SKIP>
+__global__ void __launch_bounds__(THREADS)
+pool_quant_kernel(const TH_* __restrict__ h, void* __restrict__ skip,
+                  uint16_t* __restrict__ pooled, int H, int W, int C, float s, int pool,
+                  long long items) {
+  const int groups = C / 8;
+  const int Hp = H / 2, Wp = W / 2;
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < items;
+       t += (long long)gridDim.x * THREADS) {
+    const long long pp = t / groups;      // pooled pixel
+    const int c0 = (int)(t - pp * groups) * 8;
+    const long long hw = (long long)Hp * Wp;
+    const long long bi = pp / hw;
+    const int rem = (int)(pp - bi * hw);
+    const int py = rem / Wp, px = rem - (rem / Wp) * Wp;
+    float m[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) m[k] = -INFINITY;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const long long o = ((bi * H + 2 * py + (d >> 1)) * W + 2 * px + (d & 1)) * C + c0;
+      float v[8];
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (sizeof(TH_) == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(h + o);
+        const float4 bq = *reinterpret_cast<const float4*>(h + o + 4);
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = bq.x; v[5] = bq.y; v[6] = bq.z; v[7] = bq.w;
+      } else {
+        raw = *reinterpret_cast<const uint4*>(h + o);
+        const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[2 * k] = bf16_bits_to_float(w4[k] & 0xffffu);
+          v[2 * k + 1] = bf16_bits_to_float(w4[k] >> 16);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m[k] = fmaxf(m[k], v[k]);
+      if constexpr (SKIP == 1) {
+        uint4 q = raw;
+        if constexpr (sizeof(TH_) == 4) {
+          q.x = pack_bf16x2(v[0], v[1]);
+          q.y = pack_bf16x2(v[2], v[3]);
+          q.z = pack_bf16x2(v[4], v[5]);
+          q.w = pack_bf16x2(v[6], v[7]);
+        }
+        *reinterpret_cast<uint4*>(static_cast<uint16_t*>(skip) + o) = q;
+      } else if constexpr (SKIP == 2) {
+        uint32_t q[2] = {0u, 0u};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float r = fminf(fmaxf(rintf(__fmul_rn(v[k], s)), 0.f), 127.f);
+          q[k >> 2] |= (uint32_t)(uint8_t)(int8_t)(int)r << (8 * (k & 3));
+        }
+        *reinterpret_cast<uint2*>(static_cast<int8_t*>(skip) + o) = make_uint2(q[0], q[1]);
+      }
+    }
+    if (pool) {
+      uint4 o4;
+      o4.x = pack_bf16x2(m[0], m[1]);
+      o4.y = pack_bf16x2(m[2], m[3]);
+      o4.z = pack_bf16x2(m[4], m[5]);
+      o4.w = pack_bf16x2(m[6], m[7]);
+      *reinterpret_cast<uint4*>(pooled + ((bi * Hp + py) * Wp + px) * C + c0) = o4;
+    }
+  }
+}
+
+int grid_for(long long items, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long need = (items + THREADS - 1) / THREADS;
+  const long long cap = (long long)sms * 16;   // a grid-stride loop past 16 blocks per SM
+  *blocks = (int)(need < cap ? need : cap);
+  return 0;
+}
+
+}  // namespace
+
+// Plain C interface, bound from Python with ctypes: each entry launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (or the
+// error of the launch set-up, or cudaErrorInvalidValue for arguments it
+// does not take). Every tensor is contiguous and 16-byte aligned.
+
+// taps 0: x [B, H, W] (x_bf16: bf16, else f32) -> out [B, H-2, W-2, C];
+// taps 1: x [B, H, W, 9] f32 -> out [B, H, W, C]. w9 f32 [9, C], b f32 [C],
+// out bf16. C % 8 == 0.
+extern "C" int enc0_conv1_stage(const void* x, const void* w9, const void* b, void* out,
+                                int batch, int H, int W, int C, int x_bf16, int taps,
+                                void* stream) {
+  if (batch < 1 || C < 8 || C % 8 || (taps && x_bf16) || (taps ? (H < 1 || W < 1)
+                                                               : (H < 3 || W < 3)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Ho = taps ? H : H - 2, Wo = taps ? W : W - 2;
+  const long long items = (long long)batch * Ho * Wo * (C / 8);
+  int blocks = 0;
+  if (int rc = grid_for(items, &blocks)) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wp = static_cast<const float*>(w9);
+  const float* bp = static_cast<const float*>(b);
+  uint16_t* op = static_cast<uint16_t*>(out);
+  if (taps)
+    conv1_kernel<float, true><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), wp, bp,
+                                                         op, H, W, Ho, Wo, C, items);
+  else if (x_bf16)
+    conv1_kernel<uint16_t, false><<<blocks, THREADS, 0, s>>>(
+        static_cast<const uint16_t*>(x), wp, bp, op, H, W, Ho, Wo, C, items);
+  else
+    conv1_kernel<float, false><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), wp,
+                                                          bp, op, H, W, Ho, Wo, C, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h [B, H, W, Cin] bf16, w2t bf16 [Cout, 9, CP] with CP = Cin rounded up to
+// 16 (zero past Cin) -> out [B, H-2, W-2, Cout], f32 or (relu_bf16)
+// bf16(relu(.)). Cin and Cout multiples of 8, at most 64.
+extern "C" int enc0_conv2_stage(const void* h, const void* w2t, void* out, int batch, int H,
+                                int W, int Cin, int Cout, int relu_bf16, void* stream) {
+  if (batch < 1 || H < 3 || W < 3 || Cin < 8 || Cin % 8 || Cin > MAX_C2 || Cout < 8 ||
+      Cout % 8 || Cout > MAX_C2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom2 g;
+  g.B = batch;
+  g.H = H;
+  g.W = W;
+  g.Ho = H - 2;
+  g.Wo = W - 2;
+  g.Cin = Cin;
+  g.CP = (Cin + 15) / 16 * 16;
+  g.Cout = Cout;
+  g.tiles_r = (g.Ho + TH - 1) / TH;
+  g.tiles_c = (g.Wo + TW - 1) / TW;
+  g.tiles = (long long)batch * g.tiles_r * g.tiles_c;
+  g.lda = 2 * g.CP + 16;
+  g.ldw = 18 * g.CP + 16;
+  const int smem = PH * PW * g.lda + Cout * g.ldw;
+  void (*kernel)(const uint16_t*, const uint16_t*, void*, Geom2) =
+      relu_bf16 ? &conv2_kernel<true> : &conv2_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = g.tiles < (long long)sms * per_sm ? g.tiles : (long long)sms * per_sm;
+  kernel<<<(unsigned)blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(h), static_cast<const uint16_t*>(w2t), out, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h [B, H, W, C] (h_bf16: bf16, else f32), H and W even, C % 8 == 0.
+// skip_mode 0: none; 1: skip bf16 [B, H, W, C]; 2: skip int8 clamp(rint(h *
+// s), 0, 127). pool 1: pooled bf16 [B, H/2, W/2, C]. At least one output.
+extern "C" int enc0_pool_quant_stage(const void* h, void* skip, void* pooled, int batch, int H,
+                                     int W, int C, int h_bf16, int skip_mode, float s,
+                                     int pool, void* stream) {
+  if (batch < 1 || H < 2 || W < 2 || H % 2 || W % 2 || C < 8 || C % 8 || skip_mode < 0 ||
+      skip_mode > 2 || (skip_mode == 0 && !pool))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = (long long)batch * (H / 2) * (W / 2) * (C / 8);
+  int blocks = 0;
+  if (int rc = grid_for(items, &blocks)) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint16_t* pp = static_cast<uint16_t*>(pooled);
+#define POOL_LAUNCH(T, MODE)                                                          \
+  pool_quant_kernel<T, MODE><<<blocks, THREADS, 0, st>>>(static_cast<const T*>(h), skip, \
+                                                         pp, H, W, C, s, pool, items)
+  if (h_bf16) {
+    if (skip_mode == 0) POOL_LAUNCH(uint16_t, 0);
+    else if (skip_mode == 1) POOL_LAUNCH(uint16_t, 1);
+    else POOL_LAUNCH(uint16_t, 2);
+  } else {
+    if (skip_mode == 0) POOL_LAUNCH(float, 0);
+    else if (skip_mode == 1) POOL_LAUNCH(float, 1);
+    else POOL_LAUNCH(float, 2);
+  }
+#undef POOL_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

@@ -20,7 +20,7 @@ feed the core the values drawn from a JAX key.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,8 @@ from tpu_unet_torch.config import AugmentConfig
 from tpu_unet_torch.ops.pad import fold_reflect
 from tpu_unet_torch.ops.warp import (_angle_trig, _bspline3_weights, _mirror_index,
                                      draw_uniform_fields, elastic_fields, elastic_warp,
-                                     rotate_about_center, spline_filter_matrix)
+                                     map_coordinates_bilinear, rotate_about_center,
+                                     spline_filter_matrix)
 
 
 class AugmentDraws(NamedTuple):
@@ -59,24 +60,37 @@ def draw_augment(generator: torch.Generator, log_probs: torch.Tensor, *,
     return AugmentDraws(cid, jitter, angle, u1, u2)
 
 
-def _bilinear_multi(src: torch.Tensor, si: torch.Tensor, sj: torch.Tensor
-                    ) -> torch.Tensor:
+_GATHERS = ("stacked", "take4")
+
+
+def _bilinear_multi(src: torch.Tensor, si: torch.Tensor, sj: torch.Tensor,
+                    gather: str = "stacked") -> torch.Tensor:
     """Bilinear sample of a channel-stacked source [H, W, C] at shared
-    coordinates already folded into [0, n-1]: the four neighbour-shifted
-    copies of the flat source stacked along channels, one gather of
-    [H*W, 4C]. The rolls' wrapped tail rows are never addressed: base <=
-    h*w - w - 2 by the clamps."""
+    coordinates already folded into [0, n-1].
+
+    gather='stacked': the four neighbour-shifted copies of the flat source
+    stacked along channels, one gather of [H*W, 4C]. The rolls' wrapped
+    tail rows are never addressed: base <= h*w - w - 2 by the clamps.
+    gather='take4': one gather per tap. The taps, weights and sums are the
+    same, so the two agree bit for bit. Another name raises ValueError
+    (JAX takes any other string as 'stacked')."""
+    if gather not in _GATHERS:
+        raise ValueError(f"gather must be one of {_GATHERS}, got {gather!r}")
     h, w, c = src.shape
     i0 = torch.clamp(torch.floor(si).long(), 0, h - 2)
     j0 = torch.clamp(torch.floor(sj).long(), 0, w - 2)
     fi = (si - i0)[..., None]
     fj = (sj - j0)[..., None]
     flat = src.reshape(h * w, c)
-    nb = torch.cat([flat, torch.roll(flat, -1, 0), torch.roll(flat, -w, 0),
-                    torch.roll(flat, -(w + 1), 0)], dim=1)         # [h*w, 4c]
-    g = nb[i0 * w + j0]
-    v00, v01 = g[..., 0:c], g[..., c:2 * c]
-    v10, v11 = g[..., 2 * c:3 * c], g[..., 3 * c:]
+    base = i0 * w + j0
+    if gather == "take4":
+        v00, v01, v10, v11 = flat[base], flat[base + 1], flat[base + w], flat[base + w + 1]
+    else:
+        nb = torch.cat([flat, torch.roll(flat, -1, 0), torch.roll(flat, -w, 0),
+                        torch.roll(flat, -(w + 1), 0)], dim=1)         # [h*w, 4c]
+        g = nb[base]
+        v00, v01 = g[..., 0:c], g[..., c:2 * c]
+        v10, v11 = g[..., 2 * c:3 * c], g[..., 3 * c:]
     return (v00 * (1 - fi) * (1 - fj) + v01 * (1 - fi) * fj
             + v10 * fi * (1 - fj) + v11 * fi * fj)
 
@@ -100,16 +114,14 @@ def _cubic_multi(coeffs: torch.Tensor, si: torch.Tensor, sj: torch.Tensor
     return out
 
 
-def _fused_rotate_elastic_multi(src: torch.Tensor, angle_deg: torch.Tensor,
-                                dx: torch.Tensor, dy: torch.Tensor,
-                                canvas_size: int, order: int = 1) -> torch.Tensor:
-    """Rotate-then-elastic of a channel-stacked source [H, W, C] as one
-    sample of the composite coordinate: out(p) = rotated(p + d), with
-    rotated(q) = src[fold(R(q - c_out) + c_in)] and the elastic warp's
-    constant-0 fill outside the rotated canvas. order 3 samples with the
-    cubic B-spline kernel on prefiltered coefficients."""
-    h, w, _ = src.shape
-    ar = torch.arange(canvas_size, dtype=torch.float32, device=src.device)
+def _composite_coords(shape: Tuple[int, int], angle_deg: torch.Tensor, dx: torch.Tensor,
+                      dy: torch.Tensor, canvas_size: int, offset: int, out_size: int):
+    """Source coordinates (si, sj) of the composite rotate-then-elastic
+    sample over the canvas window [offset, offset + out_size), folded into
+    the [H, W] source, and the mask of points whose displaced position stays
+    inside the canvas."""
+    h, w = shape
+    ar = torch.arange(out_size, dtype=torch.float32, device=dx.device) + offset
     pi = ar[:, None] + dx
     pj = ar[None, :] + dy
     inb = (pi >= 0) & (pi <= canvas_size - 1) & (pj >= 0) & (pj <= canvas_size - 1)
@@ -119,14 +131,46 @@ def _fused_rotate_elastic_multi(src: torch.Tensor, angle_deg: torch.Tensor,
     qj = pj - co
     si = fold_reflect(cos * qi + sin * qj + (h - 1) / 2.0, h)
     sj = fold_reflect(-sin * qi + cos * qj + (w - 1) / 2.0, w)
+    return si, sj, inb
+
+
+def _fused_rotate_elastic_multi(src: torch.Tensor, angle_deg: torch.Tensor,
+                                dx: torch.Tensor, dy: torch.Tensor,
+                                canvas_size: int, order: int = 1,
+                                gather: str = "stacked") -> torch.Tensor:
+    """Rotate-then-elastic of a channel-stacked source [H, W, C] as one
+    sample of the composite coordinate: out(p) = rotated(p + d), with
+    rotated(q) = src[fold(R(q - c_out) + c_in)] and the elastic warp's
+    constant-0 fill outside the rotated canvas. order 3 samples with the
+    cubic B-spline kernel on prefiltered coefficients; order 1 gathers as
+    `gather` says (see `_bilinear_multi`)."""
+    h, w, _ = src.shape
+    si, sj, inb = _composite_coords((h, w), angle_deg, dx, dy, canvas_size, 0, canvas_size)
     if order == 3:
         fv = spline_filter_matrix(h, src.device)
         fh = spline_filter_matrix(w, src.device)
         coeffs = torch.einsum("im,jn,mnc->ijc", fv, fh, src.float())
         val = _cubic_multi(coeffs, si, sj)
     else:
-        val = _bilinear_multi(src.float(), si, sj)
+        val = _bilinear_multi(src.float(), si, sj, gather=gather)
     return torch.where(inb[..., None], val, 0.0)
+
+
+def _fused_rotate_elastic(img: torch.Tensor, angle_deg: torch.Tensor,
+                          dx: torch.Tensor, dy: torch.Tensor, canvas_size: int,
+                          offset: int = 0, out_size: Optional[int] = None) -> torch.Tensor:
+    """Rotate-then-elastic of one image [H, W] as one bilinear sample of the
+    composite coordinate (`_fused_rotate_elastic_multi` for a single
+    channel, through `map_coordinates_bilinear`).
+
+    `canvas_size` is the rotated canvas's extent (the network input size);
+    `offset` and `out_size` evaluate only the window [offset, offset +
+    out_size) of it, and `dx`/`dy` must already be that window's slice."""
+    out_size = canvas_size if out_size is None else out_size
+    si, sj, inb = _composite_coords(img.shape, angle_deg, dx, dy, canvas_size, offset,
+                                    out_size)
+    val = map_coordinates_bilinear(img, (si, sj))
+    return torch.where(inb, val, 0.0)
 
 
 def _augment_one(image: torch.Tensor, target: torch.Tensor, draws: AugmentDraws,

@@ -136,6 +136,14 @@ def load_library() -> ctypes.CDLL:
         lib.concat_quantize.restype = i
         lib.interleave_copy.argtypes = [i, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p]
         lib.interleave_copy.restype = i
+        lib.row_gather_f32.argtypes = [p, p, i, p, ll, ll, i, ll, i, p]
+        lib.row_gather_f32.restype = i
+        lib.enc0_conv1_stage.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.enc0_conv1_stage.restype = i
+        lib.enc0_conv2_stage.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.enc0_conv2_stage.restype = i
+        lib.enc0_pool_quant_stage.argtypes = [p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.enc0_pool_quant_stage.restype = i
         lib.tpu_unet_torch_cuda_error_string.argtypes = [i]
         lib.tpu_unet_torch_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -169,12 +169,16 @@ def concat_quantize_plain(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tens
     return torch.cat([q(a), q(b)], dim=-1)
 
 
-def concat_quantize(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tensor:
+def concat_quantize(a: torch.Tensor, b: torch.Tensor, scale, *,
+                    block_rows: int = 8) -> torch.Tensor:
     """round(concat([a, b], -1) * f32(1/scale)) clamped to int8 [-127, 127].
 
     a, b [B, H, W, C], each int8 (already at `scale`, passed through) or
     float (rounded to bf16 first, as the JAX function does) -> [B, H, W, 2C]
     int8.
+
+    `block_rows` is the TPU kernel's row block: an int >= 1 (else
+    ValueError; JAX fails on 0 with a ZeroDivisionError), it steers nothing.
 
     On a CPU tensor: `concat_quantize_plain`. On a CUDA tensor: the Hopper
     kernel, counted in ``concat_quantize.launches``. It reads each half
@@ -184,6 +188,8 @@ def concat_quantize(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tensor:
     if a.dim() != 4 or a.shape != b.shape:
         raise ValueError(f"concat_quantize needs two equal [B, H, W, C] shapes, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if isinstance(block_rows, bool) or not isinstance(block_rows, int) or block_rows < 1:
+        raise ValueError(f"block_rows must be an int >= 1, got {block_rows!r}")
     a = a if a.dtype == torch.int8 else a.to(torch.bfloat16)
     b = b if b.dtype == torch.int8 else b.to(torch.bfloat16)
     if not _on_cuda("concat_quantize", a, b):

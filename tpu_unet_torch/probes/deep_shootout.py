@@ -27,13 +27,13 @@ from __future__ import annotations
 
 import argparse
 import functools
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from tpu_unet_torch.ops.conv_kxk import conv2x2_fused, conv_rows3_col
 from tpu_unet_torch.ops.conv_tiles import conv3x3_fused, conv3x3_int8_xla
+from tpu_unet_torch.probes import log, time_ms
 
 # section -> (label, k, H = W, Cin, Cout)
 SECTIONS = {
@@ -44,10 +44,6 @@ SECTIONS = {
 }
 REPS = 5
 DEVICE = "cuda"
-
-
-def log(*args) -> None:
-    print(f"[{time.strftime('%H:%M:%S')}]", *args, flush=True)
 
 
 def _routes(section: int) -> Dict[str, Callable]:
@@ -88,18 +84,6 @@ def _data(batch: int, h: int, cin: int, cout: int, k: int, seed: int):
     return x, w, alpha, torch.zeros((cout,), device=DEVICE)
 
 
-def _time_ms(fn: Callable, reps: int = REPS) -> float:
-    fn()                                   # warm-up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 @torch.inference_mode()
 def run(batch: int = 16, section: int = 0, only: str = "") -> List[dict]:
     """Time every route of the chosen sections; returns one record per
@@ -126,11 +110,13 @@ def run(batch: int = 16, section: int = 0, only: str = "") -> List[dict]:
             else:
                 mismatch = (y != ref).float().mean().item()
             del y
-            ms = _time_ms(lambda: fn(*args))
-            log(f"  {name:26s}: {ms:8.3f} ms  {ops / ms / 1e9:7.1f} T/s"
+            ms = time_ms(lambda: fn(*args), DEVICE, REPS)
+            tops = None if ms is None else ops / ms / 1e9
+            log(f"  {name:26s}: " + (f"{ms:8.3f} ms  {tops:7.1f} T/s" if ms is not None
+                                     else "not timed")
                 + (f"  mismatch={mismatch:.2e}" if mismatch is not None else ""))
             out.append({"section": sec, "label": label, "route": name, "ms": ms,
-                        "tops": ops / ms / 1e9, "mismatch": mismatch})
+                        "tops": tops, "mismatch": mismatch})
         del args, ref
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
