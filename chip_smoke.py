@@ -5,16 +5,21 @@
 Phases, each printing its own lines:
   1. the device, the kernel build (every source of tpu_unet_torch/csrc, on
      first use) and the card's name and power limit;
-  2. K1, the fused 3x3 conv + bias + ReLU kernel, against its plain PyTorch
-     version at every conv shape of a 572x572 U-Net tile (bf16), at ragged
-     shapes, and in f32 with TF32 off;
+  2. K1, the fused 3x3 conv + bias + ReLU, against its plain PyTorch
+     version at every conv shape of a 572x572 U-Net tile (bf16; 17 on the
+     sm90 wgmma loop, enc0_conv1 on the simple kernel, each launch's route
+     checked), at the full enc0_conv2 chunk, at the sm90 loop's edge shapes
+     (M not a multiple of 128, Cout 8/24/72/200/1024, Cin 8/24/1024), with
+     a misaligned w (sm90 route, which copies it), at ragged shapes and a
+     misaligned x (simple route), and in f32 with TF32 off;
   3. serving: the full-width bf16 U-Net (conv_impl='pallas', random weights
-     from seed 0) through evaluate() on a synthetic set: K1's launch count,
-     finite metrics, and its logits against the same weights under
-     conv_impl='xla' (cuDNN);
+     from seed 0) through evaluate() on a synthetic set: K1's launches by
+     route (17 sm90 and 1 simple per chunk), finite metrics, and its logits
+     against the same weights under conv_impl='xla' (cuDNN);
   4. serving times, with CUDA events after a warm-up: evaluate_batch under
-     'pallas' and 'xla', and each conv shape under the kernel, the plain
-     version and cuDNN in bf16;
+     'pallas' and 'xla', and each conv shape in turns under K1 as routed,
+     the simple kernel at the same shape, and cuDNN in bf16, then the plain
+     version, beside the bound;
   5. K2, the EDT column pass kernel, against its plain version, bit for bit
      (tolerance 0, +inf positions equal): the DIC-HeLa weight-map shape
      [2, 32, 388, 388] with num_valid [5, 0], ragged shapes and an
@@ -91,7 +96,9 @@ Phases, each printing its own lines:
      conv2 in f32 within 1e-5 of its scale and in ReLU-bf16 within one bf16
      ulp, pool/quantize bit for bit (values on .5 after scaling included);
      each stage's time at the chunk against its plain version, the bound
-     and cuDNN's conv or max-pool where one computes the same function; the
+     and the library call that computes the same function (conv1: the f32
+     conv + bias + ReLU, TF32 off; conv2: cuDNN's bf16 conv; the pool:
+     max-pool); the
      mosaic probe (python -m tpu_unet_torch.probes.mosaic_probe): every
      piece against its oracle, K4 and K5 at the scripts' sizes, and the
      staged chain at the chunk against K4, timed in turns with K4 and the
@@ -119,6 +126,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tpu_unet_torch.probes import log, time_ms
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -172,10 +181,6 @@ def chunk_bound(shapes, kind: str, in_bytes: int, out_bytes: int, vec_bytes: int
     return bound(sum(c[0] for c in costs), sum(c[1] for c in costs), kind)
 
 
-def log(*args) -> None:
-    print(*args, flush=True)
-
-
 def phase1_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -197,7 +202,7 @@ def phase1_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(smi)
+    print(smi, flush=True)                 # bare, as nvidia-smi gives it: no time stamp
 
 
 def conv_shapes(cfg, size: int):
@@ -227,11 +232,28 @@ def _conv_inputs(shape, cout, dtype, gen):
     return x, w, b
 
 
-def _compare(shape, cout, dtype, gen) -> float:
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` 2 bytes off 16-byte alignment."""
+    return torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)[1:t.numel() + 1] \
+        .view(t.shape).copy_(t)
+
+
+def _compare(shape, cout, dtype, gen, route=None, misalign=None) -> float:
+    """K1 through `conv3x3_bias_relu` against its plain version; `route`,
+    when given, is the route the launch must take; `misalign` ("x" or "w")
+    moves that operand to a contiguous view 2 bytes off 16-byte alignment."""
     from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu, conv3x3_bias_relu_plain
 
     x, w, b = _conv_inputs(shape, cout, dtype, gen)
+    if misalign == "x":
+        x = _misaligned(x)
+    elif misalign == "w":
+        w = _misaligned(w)
+    sm90 = conv3x3_bias_relu.sm90_launches
     got = conv3x3_bias_relu(x, w, b)
+    took = "sm90" if conv3x3_bias_relu.sm90_launches > sm90 else "simple"
+    if route is not None and took != route:
+        raise AssertionError(f"{shape}->{cout} {dtype} took the {took} route, not {route}")
     ref = conv3x3_bias_relu_plain(x, w, b)
     torch.cuda.synchronize()
     if got.dtype != dtype or got.shape != ref.shape:
@@ -248,6 +270,11 @@ def _compare(shape, cout, dtype, gen) -> float:
     return err
 
 
+def _route_of(cin: int) -> str:
+    """The route a full-width conv takes: enc0_conv1 (Cin 1) the simple one."""
+    return "sm90" if cin % 8 == 0 else "simple"
+
+
 @torch.inference_mode()
 def phase2_kernel_vs_plain(cfg) -> float:
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -257,26 +284,38 @@ def phase2_kernel_vs_plain(cfg) -> float:
     max_err = 0.0
     for name, s, cin, cout in shapes:
         rows = min(s, 34)                     # H cut; W and channels full
-        err = _compare((2, rows, s, cin), cout, torch.bfloat16, gen)
+        route = _route_of(cin)
+        err = _compare((2, rows, s, cin), cout, torch.bfloat16, gen, route)
         max_err = max(max_err, err)
-        log(f"phase 2: {name:17s} x[2,{rows},{s},{cin}] -> {cout}: bf16 max|err| {err:.3g}")
+        log(f"phase 2: {name:17s} x[2,{rows},{s},{cin}] -> {cout} ({route}): bf16 max|err| "
+            f"{err:.3g}")
     # the full enc0_conv2 activation of one 16-tile chunk (~333 M elements)
     name, s, cin, cout = shapes[1]
-    err = _compare((BATCH_TILES, s, s, cin), cout, torch.bfloat16, gen)
+    err = _compare((BATCH_TILES, s, s, cin), cout, torch.bfloat16, gen, "sm90")
     max_err = max(max_err, err)
-    log(f"phase 2: {name} x[{BATCH_TILES},{s},{s},{cin}] -> {cout}: bf16 max|err| {err:.3g}")
-    for shape, cout in [((2, 37, 45, 64), 64), ((3, 13, 29, 128), 200),
-                        ((2, 11, 19, 3), 20), ((1, 5, 130, 8), 72)]:
-        err = _compare(shape, cout, torch.bfloat16, gen)
+    log(f"phase 2: {name} x[{BATCH_TILES},{s},{s},{cin}] -> {cout} (sm90): bf16 max|err| "
+        f"{err:.3g}")
+    # the sm90 loop off the model's shapes: M not a multiple of 128, Cout
+    # 8/24/72/200/1024, Cin 8/24/1024; then ragged shapes the simple route takes
+    for shape, cout, route in [((2, 37, 45, 64), 64, "sm90"), ((3, 13, 29, 128), 200, "sm90"),
+                               ((1, 5, 130, 8), 72, "sm90"), ((2, 9, 17, 24), 24, "sm90"),
+                               ((1, 6, 40, 8), 8, "sm90"), ((1, 10, 12, 1024), 1024, "sm90"),
+                               ((2, 11, 19, 3), 20, "simple"), ((1, 7, 9, 16), 20, "simple")]:
+        err = _compare(shape, cout, torch.bfloat16, gen, route)
         max_err = max(max_err, err)
-        log(f"phase 2: ragged x{list(shape)} -> {cout}: bf16 max|err| {err:.3g}")
+        log(f"phase 2: x{list(shape)} -> {cout} ({route}): bf16 max|err| {err:.3g}")
+    for operand, route in (("x", "simple"), ("w", "sm90")):
+        err = _compare((1, 10, 34, 64), 64, torch.bfloat16, gen, route, misalign=operand)
+        max_err = max(max_err, err)
+        log(f"phase 2: x[1,10,34,64] -> 64, {operand} misaligned ({route}): bf16 max|err| "
+            f"{err:.3g}")
     for shape, cout in [((1, 18, 20, 8), 16), ((2, 13, 16, 4), 8),
                         ((1, 10, 34, 16), 32), ((2, 12, 15, 1), 8),
                         ((1, 9, 23, 3), 5), ((2, 20, 70, 64), 128)]:
-        err = _compare(shape, cout, torch.float32, gen)
-        log(f"phase 2: f32 x{list(shape)} -> {cout}: max|err| {err:.3g}")
+        err = _compare(shape, cout, torch.float32, gen, "simple")
+        log(f"phase 2: f32 x{list(shape)} -> {cout} (simple): max|err| {err:.3g}")
     log(f"phase 2: ok, bf16 tolerance {BF16_TOL} of the output scale, "
-        f"f32 rtol {F32_RTOL} atol {F32_ATOL} (TF32 off)")
+        f"f32 rtol {F32_RTOL} atol {F32_ATOL} (TF32 off); 17 of the 18 convs on the sm90 loop")
     return max_err
 
 
@@ -294,15 +333,17 @@ def phase3_serve(cfg):
     if engine.plan.tile_in != TILE_IN:
         raise AssertionError(f"tile_in {engine.plan.tile_in}")
 
-    conv3x3_bias_relu.launches = 0
+    conv3x3_bias_relu.launches = conv3x3_bias_relu.sm90_launches = 0
     result = evaluate(model, data, tile_out=TILE_OUT, verbose=False)
     torch.cuda.synchronize()
-    launches = conv3x3_bias_relu.launches
+    sm90 = conv3x3_bias_relu.sm90_launches
+    launches = {"sm90": sm90, "simple": conv3x3_bias_relu.launches - sm90}
     log(f"phase 3: evaluate() on {len(data)} images, {n_tiles} tiles of "
         f"{TILE_IN}^2 in {n_chunks} chunk(s) of {engine.batch_tiles}: "
-        f"{launches} kernel launches; {json.dumps(result)}")
-    if launches != 18 * n_chunks:
-        raise AssertionError(f"{launches} launches, want 18 x {n_chunks}")
+        f"K1 launches by route {launches}; {json.dumps(result)}")
+    if launches != {"sm90": 17 * n_chunks, "simple": n_chunks}:
+        raise AssertionError(f"K1 launches {launches}, want sm90 17 x {n_chunks} and "
+                             f"simple 1 x {n_chunks}")
 
     labels = (data.targets > 127).astype(np.uint8)
     ms, preds = engine.evaluate_batch(data.images, labels)
@@ -339,21 +380,10 @@ def phase3_serve(cfg):
     return model, xla, data, labels, launches
 
 
-def _time_ms(fn, reps: int) -> float:
-    fn()                                   # warm-up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase4_time(cfg, model, xla, data, labels):
     from tpu_unet_torch.infer import TileInference
-    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu, conv3x3_bias_relu_plain
+    from tpu_unet_torch.ops.conv_pallas import (_conv3x3_route_forward, conv3x3_bias_relu,
+                                                conv3x3_bias_relu_plain)
 
     images = torch.from_numpy(data.images).to(DEVICE)
     lab = torch.from_numpy(labels).to(DEVICE)
@@ -362,7 +392,7 @@ def phase4_time(cfg, model, xla, data, labels):
     n_tiles = len(data) * engines["pallas"].plan.num_tiles
     times = {"pallas": [], "xla": []}
     for impl in ("pallas", "xla", "xla", "pallas"):
-        times[impl].append(_time_ms(lambda: engines[impl].evaluate_batch(images, lab), 3))
+        times[impl].append(time_ms(lambda: engines[impl].evaluate_batch(images, lab), DEVICE, 3))
     tiles_s = {}
     for impl, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -372,30 +402,49 @@ def phase4_time(cfg, model, xla, data, labels):
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes, _ = conv_shapes(cfg, TILE_IN)
-    total = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0}
+    keys = ("kernel", "simple", "plain", "cudnn")
+    total = dict.fromkeys(keys + ("sm90", "simple_at_sm90_shapes", "cudnn_at_sm90_shapes"), 0.0)
+    per_shape = {}
     with torch.inference_mode():
         for name, s, cin, cout in shapes:
             x, w, b = _conv_inputs((BATCH_TILES, s, s, cin), cout, torch.bfloat16, gen)
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
             x_nchw = x.permute(0, 3, 1, 2)                 # channels-last view
-            t = {
-                "kernel": _time_ms(lambda: conv3x3_bias_relu(x, w, b), 5),
-                "plain": _time_ms(lambda: conv3x3_bias_relu_plain(x, w, b), 3),
-                "cudnn": _time_ms(lambda: F.relu(F.conv2d(x_nchw, w_oihw, b)), 5),
-            }
-            for k in total:
+            fns = {"kernel": (lambda: conv3x3_bias_relu(x, w, b), 5),
+                   "simple": (lambda: _conv3x3_route_forward(x, w, b, "simple"), 3),
+                   "cudnn": (lambda: F.relu(F.conv2d(x_nchw, w_oihw, b)), 5)}
+            runs = {k: [] for k in fns}
+            for k in ("kernel", "simple", "cudnn", "cudnn", "simple", "kernel"):   # in turns
+                fn, reps = fns[k]
+                runs[k].append(time_ms(fn, DEVICE, reps))
+            t = {k: sum(v) / len(v) for k, v in runs.items()}
+            t["plain"] = time_ms(lambda: conv3x3_bias_relu_plain(x, w, b), DEVICE, 3)
+            route = _route_of(cin)
+            for k in keys:
                 total[k] += t[k]
+            if route == "sm90":
+                total["sm90"] += t["kernel"]
+                total["simple_at_sm90_shapes"] += t["simple"]
+                total["cudnn_at_sm90_shapes"] += t["cudnn"]
             nbytes, flop = conv_cost(BATCH_TILES, s, cin, cout, 2, 2, 2)
-            b_ms, by = bound(nbytes, flop, "bf16")
-            log(f"phase 4: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel "
-                f"{t['kernel']:.3f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
-                f"f32 {t['plain']:.3f} ms, cuDNN bf16 {t['cudnn']:.3f} ms, bound "
-                f"{b_ms:.3f} ms ({by})")
+            t["bound"], t["bound_by"] = bound(nbytes, flop, "bf16")
+            t["route"] = route
+            per_shape[name] = t
+            log(f"phase 4: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel ({route}) "
+                f"{t['kernel']:.3f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), simple "
+                f"{t['simple']:.3f} ms, cuDNN bf16 {t['cudnn']:.3f} ms, plain f32 "
+                f"{t['plain']:.3f} ms, bound {t['bound']:.3f} ms ({t['bound_by']})")
             del x, w, b, w_oihw, x_nchw
     total["bound"], total["bound_by"] = chunk_bound(shapes, "bf16", 2, 2, 2)
-    log(f"phase 4: 18 convs of one {BATCH_TILES}-tile chunk: kernel {total['kernel']:.2f} ms, "
-        f"plain f32 {total['plain']:.2f} ms, cuDNN bf16 {total['cudnn']:.2f} ms, bound "
-        f"{total['bound']:.3f} ms ({total['bound_by']})")
+    sm90_shapes = [sh for sh in shapes if _route_of(sh[2]) == "sm90"]
+    total["bound_sm90"] = chunk_bound(sm90_shapes, "bf16", 2, 2, 2)[0]
+    total["per_shape"] = per_shape
+    log(f"phase 4: 18 convs of one {BATCH_TILES}-tile chunk: kernel {total['kernel']:.2f} ms "
+        f"(the 17 sm90 convs {total['sm90']:.2f} ms, their bound {total['bound_sm90']:.3f}), "
+        f"simple route alone {total['simple']:.2f} ms ({total['simple_at_sm90_shapes']:.2f} at "
+        f"the 17), cuDNN bf16 {total['cudnn']:.2f} ms ({total['cudnn_at_sm90_shapes']:.2f} at "
+        f"the 17), plain f32 {total['plain']:.2f} ms, bound {total['bound']:.3f} ms "
+        f"({total['bound_by']})")
     return total, tiles_s
 
 
@@ -547,17 +596,20 @@ def phase7_train(cfg):
     trainer = Trainer(ds, cfg, tcfg, out_dir=out)
     n_val = -(-len(data) // tcfg.batch_size)
     n_steps = len(data) // tcfg.batch_size
-    conv3x3_bias_relu.launches = column_pass.launches = 0
+    conv3x3_bias_relu.launches = conv3x3_bias_relu.sm90_launches = column_pass.launches = 0
     t0 = time.perf_counter()
     history = trainer.fit(data, data, epochs=0)
     torch.cuda.synchronize()
     launches = {"conv3x3_bias_relu": conv3x3_bias_relu.launches,
+                "conv3x3_bias_relu_sm90": conv3x3_bias_relu.sm90_launches,
                 "edt_column_pass": column_pass.launches}
     log(f"phase 7: Trainer.fit(epochs=0) on {len(data)} images of 448^2: {n_steps} "
         f"train steps, {n_val} val batches in {time.perf_counter() - t0:.1f} s; "
         f"launches {launches}; history {json.dumps(history)}")
-    if launches["conv3x3_bias_relu"] != 18 * (n_steps + n_val):
-        raise AssertionError(f"K1 launches {launches}, want 18 x ({n_steps} + {n_val})")
+    if (launches["conv3x3_bias_relu"] != 18 * (n_steps + n_val)
+            or launches["conv3x3_bias_relu_sm90"] != 17 * (n_steps + n_val)):
+        raise AssertionError(f"K1 launches {launches}, want 18 x ({n_steps} + {n_val}), "
+                             f"17 of each 18 on the sm90 route")
     if launches["edt_column_pass"] < n_steps:
         raise AssertionError(f"K2 launches {launches}, want >= {n_steps}")
     if not all(np.isfinite(v) for vals in history.values() for v in vals):
@@ -624,7 +676,7 @@ def _events():
 
 # Kernel-name fragments -> the rows of the train-step breakdown.
 KERNEL_GROUPS = (
-    ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu",)),
+    ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu", "sm90::conv3x3_")),
     ("K2 edt_column_pass", ("edt_column_pass",)),
     ("K3 conv3x3_fused", ("conv3x3_fused",)),
     ("K4 enc0_chain", ("enc0_chain",)),
@@ -760,8 +812,8 @@ def phase8_time(cfg):
     for label, nv in (("num_valid [5, 0]", [5, 0]), ("all 64 planes live", None)):
         num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
         for band in (EDT_BAND, None):
-            t = {"kernel": _time_ms(lambda: column_pass(g2, num, band), 20),
-                 "plain": _time_ms(lambda: column_pass_plain(g2, num, band), 3)}
+            t = {"kernel": time_ms(lambda: column_pass(g2, num, band), DEVICE, 20),
+                 "plain": time_ms(lambda: column_pass_plain(g2, num, band), DEVICE, 3)}
             edt_ms[f"{label}, band {band}"] = t
             log(f"phase 8: K2 g2[2,32,{TILE_OUT},{TILE_OUT}] {label}, band {band}: "
                 f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms")
@@ -940,7 +992,7 @@ def phase11_time_int8(cfg, model, data, qp):
     order = list(engines) + list(reversed(engines))
     times = {k: [] for k in engines}
     for key in order:
-        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+        times[key].append(time_ms(lambda: engines[key].evaluate_batch(images, lab), DEVICE, 3))
     tiles_s = {}
     for key, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -965,10 +1017,10 @@ def phase11_time_int8(cfg, model, data, qp):
     with torch.inference_mode():
         for name, s, cin, cout in shapes:
             x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen)
-            t = {"kernel": _time_ms(lambda: conv3x3_fused(x, w, alpha, beta,
-                                                          out_kind="int8"), 5),
-                 "library": _time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), 5),
-                 "plain": _time_ms(lambda: conv3x3_fused_plain(x, w, alpha, beta, "int8"), 2)}
+            t = {"kernel": time_ms(lambda: conv3x3_fused(x, w, alpha, beta,
+                                                         out_kind="int8"), DEVICE, 5),
+                 "library": time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), DEVICE, 5),
+                 "plain": time_ms(lambda: conv3x3_fused_plain(x, w, alpha, beta, "int8"), DEVICE, 2)}
             for k in total:
                 total[k] += t[k]
             nbytes, ops = conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)
@@ -1375,7 +1427,7 @@ def _per_chunk(cases):
     total = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
     for fns in cases:
         for key, fn, reps in zip(total, fns, (10, 3, 10)):
-            total[key] += _time_ms(fn, reps)
+            total[key] += time_ms(fn, DEVICE, reps)
     return total
 
 
@@ -1400,7 +1452,7 @@ def phase14_time_research(model, data, qp):
     n_tiles = len(data) * engines["int8 'pallas'"].plan.num_tiles
     times = {k: [] for k in engines}
     for key in list(engines) + list(reversed(engines)):
-        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+        times[key].append(time_ms(lambda: engines[key].evaluate_batch(images, lab), DEVICE, 3))
     tiles_s = {}
     for key, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -1658,7 +1710,7 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
     n_tiles = len(data) * engines["int8 'pallas'"].plan.num_tiles
     times = {k: [] for k in engines}
     for key in list(engines) + list(reversed(engines)):
-        times[key].append(_time_ms(lambda: engines[key].evaluate_batch(images, lab), 3))
+        times[key].append(time_ms(lambda: engines[key].evaluate_batch(images, lab), DEVICE, 3))
     tiles_s = {}
     for key, ts in times.items():
         ms = sum(ts) / len(ts)
@@ -1683,9 +1735,9 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
     with torch.inference_mode():
         for name, s, cin, cout in kxk_shapes(cfg):
             x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen, k=2)
-            t = {"kernel": _time_ms(lambda: conv_rows3_col(x, w, alpha, beta), 10),
-                 "plain": _time_ms(lambda: conv_kxk_fused_plain(x, w, alpha, beta), 2),
-                 "library": _time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), 5)}
+            t = {"kernel": time_ms(lambda: conv_rows3_col(x, w, alpha, beta), DEVICE, 10),
+                 "plain": time_ms(lambda: conv_kxk_fused_plain(x, w, alpha, beta), DEVICE, 2),
+                 "library": time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), DEVICE, 5)}
             b, o = kxk_cost(BATCH_TILES, s, 2, cin, cout)
             b_ms, by = bound(b, o, "int8")
             log(f"phase 17: k x k {name} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel "
@@ -1709,8 +1761,8 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
         models[key] = (m, make_optimizer(m.parameters(), OptimConfig()))
     step_ms = {k: [] for k in models}
     for key in ("phase_level0", "plain", "plain", "phase_level0"):
-        step_ms[key].append(_time_ms(lambda r=iter(range(100)): _train_step(
-            *models[key], parts_in, next(r)), 4))
+        step_ms[key].append(time_ms(lambda r=iter(range(100)): _train_step(
+            *models[key], parts_in, next(r)), DEVICE, 4))
     train_ms = {k: sum(v) / len(v) for k, v in step_ms.items()}
     log(f"phase 17: DIC-HeLa train step (bf16, batch 2, 572^2, conv_impl 'xla'): "
         + ", ".join(f"{k} {v:.3f} ms (runs {[round(t, 3) for t in step_ms[k]]})"
@@ -1819,9 +1871,9 @@ def phase18_gather():
     times = {}
     for c in (2, 128):
         src = rand(n_pts, c)
-        t = {"kernel": _time_ms(lambda: gather.row_gather(src, idx), 20),
-             "plain": _time_ms(lambda: gather.row_gather_plain(src, idx), 5),
-             "library": _time_ms(lambda: torch.index_select(src, 0, idx), 20)}
+        t = {"kernel": time_ms(lambda: gather.row_gather(src, idx), DEVICE, 20),
+             "plain": time_ms(lambda: gather.row_gather_plain(src, idx), DEVICE, 5),
+             "library": time_ms(lambda: torch.index_select(src, 0, idx), DEVICE, 20)}
         t["bound"], t["bound_by"] = bound(*gather_cost(src, idx), "f32")
         # a call this small can be bound by the host: the device's own time
         # per call, from the profiler
@@ -1977,9 +2029,12 @@ def phase19_enc0_stages():
     # NHWC maps (channels_last) and the weights in channels_last
     h1_nchw, h2_nchw = h1.permute(0, 3, 1, 2), h2.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    # conv1's library call: the f32 conv + bias + ReLU (TF32 off) of the image
+    x_nchw, w1_oihw = x.float()[:, None], w9.t().reshape(c, 1, 3, 3).contiguous()
     forms = {
         "conv1": (lambda: st.conv1_stage(x, w9, b1),
-                  lambda: st.conv1_stage_plain(x, w9, b1), None),
+                  lambda: st.conv1_stage_plain(x, w9, b1),
+                  lambda: F.relu(F.conv2d(x_nchw, w1_oihw, b1))),
         "conv2 f32": (lambda: st.conv2_stage(h1, w), lambda: st.conv2_stage_plain(h1, w),
                       lambda: F.conv2d(h1_nchw, w_oihw)),
         "conv2 relu_bf16": (lambda: st.conv2_stage(h1, w, relu_bf16=True),
@@ -1991,8 +2046,8 @@ def phase19_enc0_stages():
                                                                skip_scale=inv), None),
     }
     for key, (kern, plain, lib) in forms.items():
-        t = {"kernel": _time_ms(kern, 10), "plain": _time_ms(plain, 3),
-             "library": _time_ms(lib, 10) if lib is not None else None}
+        t = {"kernel": time_ms(kern, DEVICE, 10), "plain": time_ms(plain, DEVICE, 3),
+             "library": time_ms(lib, DEVICE, 10) if lib is not None else None}
         nbytes, ops, kind = costs[key]
         t["bound"], t["bound_by"] = bound(nbytes, ops, kind)
         times[key] = t
@@ -2000,7 +2055,7 @@ def phase19_enc0_stages():
             f"{t['plain']:.4f} ms, library "
             + (f"{t['library']:.4f} ms" if t["library"] is not None else "none")
             + f", bound {t['bound']:.4f} ms ({t['bound_by']})")
-    del x, h1, h2, h1_nchw, h2_nchw, forms
+    del x, h1, h2, h1_nchw, h2_nchw, x_nchw, forms
     torch.cuda.empty_cache()
 
     for fn in (st.conv1_stage, st.conv2_stage, st.pool_quant_stage):
@@ -2073,6 +2128,8 @@ def stage_kernel_lines(errs, times, launches):
         "name": name,
         "route": "cuda",
         "source": "tpu_unet_torch/csrc/enc0_stages.cu",
+        "sources": (["tpu_unet_torch/csrc/enc0_stages.cu", "tpu_unet_torch/csrc/conv3x3_sm90.cuh"]
+                    if key == "conv2" else ["tpu_unet_torch/csrc/enc0_stages.cu"]),
         "replaces": replaces,
         "replaces_also": also,
         "launches": launches[name],
@@ -2121,7 +2178,8 @@ def main() -> None:
     stage_errs, stage_ms, mosaic_probe, stage_launches = phase19_enc0_stages()
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
     k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
-    log(json.dumps({"kernels": [{
+    # the two JSON lines are printed bare (no time stamp), to be parsed whole
+    print(json.dumps({"kernels": [{
         "name": "conv3x3_bias_relu",
         "route": "cuda",
         "source": "tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
@@ -2134,8 +2192,20 @@ def main() -> None:
         "bound_by": total["bound_by"],
         "library_ms": total["cudnn"],
         "backward_route": "library",
-        "launches_by_path": {"serve": serve_launches,
+        "launches_by_path": {"serve": sum(serve_launches.values()),
                              "train": launches["conv3x3_bias_relu"]},
+        "launches_by_route": {"serve": serve_launches,
+                              "train": {"sm90": launches["conv3x3_bias_relu_sm90"],
+                                        "simple": launches["conv3x3_bias_relu"]
+                                        - launches["conv3x3_bias_relu_sm90"]}},
+        "ms_by_route": {"sm90_at_its_17_shapes": total["sm90"],
+                        "simple_at_the_17_shapes": total["simple_at_sm90_shapes"],
+                        "simple_at_all_18": total["simple"],
+                        "cudnn_at_the_17_shapes": total["cudnn_at_sm90_shapes"],
+                        "bound_at_the_17_shapes": total["bound_sm90"]},
+        "per_shape": total["per_shape"],
+        "sources": ["tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
+                    "tpu_unet_torch/csrc/conv3x3_sm90.cuh"],
         "grad_max_rel_err": grad_err,
         "evaluate_tiles_per_s": tiles_s,
     }, {
@@ -2209,10 +2279,10 @@ def main() -> None:
         "enc0_chain_at_chunk_ms": stage_ms["chain"],
         "mosaic_probe": [{k: r[k] for k in ("section", "name", "ms")} for r in mosaic_probe],
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
-        "phase_level0_train_step_ms": phase_train_ms}))
-    log(json.dumps({"ok": True, "device": {
+        "phase_level0_train_step_ms": phase_train_ms}), flush=True)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,12 @@
-"""The port's CUDA kernels on the card: K1 (fused 3x3 conv + bias + ReLU)
-and its gradient, K2 (the EDT column pass), K3 (the fused int8/bf16 conv
-of quantized serving), K4, K5 and K6a-c (the fused enc0 chain, the fused
-concat + requantize and the pairing copies of the research int8 forward),
-the fused k x k int8 conv of the phase-packed level 0, the row gather of
-the gather probe and the three enc0 stage kernels of the Mosaic probes.
-These tests
-import no JAX
-(the machine with the card has none) and skip without a CUDA device. Run
-them on the card with
+"""The port's CUDA kernels on the card: K1 (fused 3x3 conv + bias + ReLU,
+on its sm90 and simple routes) and its gradient, K2 (the EDT column
+pass), K3 (the fused int8/bf16 conv of quantized serving), K4, K5 and
+K6a-c (the fused enc0 chain, the fused concat + requantize and the pairing
+copies of the research int8 forward), the fused k x k int8 conv of the
+phase-packed level 0, the row gather of the gather probe and the three
+enc0 stage kernels of the Mosaic probes. These tests import no JAX (the
+machine with the card has none) and skip without a CUDA device. Run them
+on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -18,8 +17,8 @@ import pytest
 import torch
 
 from tpu_unet_torch.models import ModelConfig, UNet
-from tpu_unet_torch.ops.conv_pallas import (conv3x3_bias_relu,
-                                            conv3x3_bias_relu_plain)
+from tpu_unet_torch.ops.conv_pallas import (_conv3x3_route_forward, conv3x3_bias_relu,
+                                            conv3x3_bias_relu_plain, sm90_plan)
 from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused,
                                          conv_kxk_fused_plain, conv_rows3_col)
 from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
@@ -140,6 +139,107 @@ def test_kernel_gradient_matches_plain_autograd(cuda, shape, dtype):
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
         else:
             assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+# (H=W of the layer's input, Cin, Cout) of the U-Net's 17 bf16 convs on
+# the sm90 loop, at full width on a 572^2 tile: all but enc0_conv1.
+SM90_FULL_WIDTH = [(570, 64, 64), (284, 64, 128), (282, 128, 128), (140, 128, 256),
+                   (138, 256, 256), (68, 256, 512), (66, 512, 512), (32, 512, 1024),
+                   (30, 1024, 1024), (56, 1024, 512), (54, 512, 512), (104, 512, 256),
+                   (102, 256, 256), (200, 256, 128), (198, 128, 128), (392, 128, 64),
+                   (390, 64, 64)]
+
+
+def _bf16_close(got, ref):
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * max(ref.float().abs().max().item(), 1.0), err
+
+
+@pytest.mark.parametrize("s,cin,cout", SM90_FULL_WIDTH)
+def test_sm90_loop_matches_plain_at_full_width(cuda, s, cin, cout):
+    """Each full-width bf16 conv (H cut to 6 rows) on the sm90 loop within
+    2e-2 of the output's scale, and the simple kernel at the same shape."""
+    x, w, b = _inputs((2, 6, s, cin), cout, torch.bfloat16, cuda, seed=cin + cout)
+    with torch.no_grad():
+        before = (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches)
+        got = conv3x3_bias_relu(x, w, b)
+        assert (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches) == \
+            (before[0] + 1, before[1] + 1)
+        simple = _conv3x3_route_forward(x, w, b, "simple")
+        ref = conv3x3_bias_relu_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    _bf16_close(got, ref)
+    _bf16_close(simple, ref)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 37, 45, 64), 64),          # M = 3010, not a multiple of 128
+    ((1, 5, 130, 8), 8),            # Cin 8, Cout 8
+    ((2, 9, 17, 24), 24),           # Cin 24, Cout 24
+    ((1, 5, 130, 8), 72),
+    ((3, 13, 29, 128), 200),        # Cout past one BN 128 block column, ragged
+    ((1, 10, 12, 1024), 1024),      # Cin 1024: 144 K steps
+    ((1, 3, 130, 64), 64),          # M = 128: one block
+    ((2, 5, 300, 16), 40),          # strip: 3 column tiles, the last ragged
+    ((2, 37, 45, 72), 40),          # flat 128 x 64: a part-filled K step and block column
+])
+def test_sm90_loop_edge_shapes(cuda, shape, cout):
+    """The sm90 loop `sm90_plan` picks, within 2e-2 of the output's scale."""
+    x, w, b = _inputs(shape, cout, torch.bfloat16, cuda, seed=cout)
+    ref = conv3x3_bias_relu_plain(x, w, b)
+    assert sm90_plan(shape[3], cout).kind == \
+        ("strip" if shape[3] <= 64 and cout <= 64 else "flat")
+    with torch.no_grad():
+        before = conv3x3_bias_relu.sm90_launches
+        got = conv3x3_bias_relu(x, w, b)
+        assert conv3x3_bias_relu.sm90_launches == before + 1
+    torch.cuda.synchronize()
+    _bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 256)])
+def test_sm90_route_takes_a_misaligned_w(cuda, cin, cout):
+    """A w 2 bytes off 16-byte alignment stays on the sm90 route (the
+    wrapper copies it) and gives what the aligned w gives."""
+    x, w, b = _inputs((1, 8, 40, cin), cout, torch.bfloat16, cuda, seed=cin)
+    wm = torch.empty(w.numel() + 8, dtype=w.dtype, device=cuda)[1:w.numel() + 1] \
+        .view(w.shape).copy_(w)
+    assert wm.data_ptr() % 16 != 0
+    with torch.no_grad():
+        before = conv3x3_bias_relu.sm90_launches
+        got = conv3x3_bias_relu(x, wm, b)
+        assert conv3x3_bias_relu.sm90_launches == before + 1
+        ref = conv3x3_bias_relu(x, w, b)
+    assert torch.equal(got, ref)
+
+
+def test_model_routes_17_convs_to_the_sm90_loop(cuda):
+    """A narrow bf16 U-Net: 17 launches on the sm90 loop and enc0_conv1 on
+    the simple kernel per forward; logits near cuDNN's."""
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16", conv_impl="pallas")
+    model = UNet(cfg).to(cuda)
+    xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(cuda)
+    xla.load_state_dict(model.state_dict())
+    x = torch.rand((2, 188, 188, 1), device=cuda)
+    with torch.inference_mode():
+        before = (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches)
+        got = model(x)
+        assert (conv3x3_bias_relu.launches - before[0],
+                conv3x3_bias_relu.sm90_launches - before[1]) == (18, 17)
+        ref = xla(x)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 5e-2 * max(ref.float().abs().max().item(), 1.0), err
+
+
+def test_route_forward_refuses_what_its_route_does_not_take(cuda):
+    x, w, b = _inputs((1, 6, 7, 12), 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="sm90"):
+        _conv3x3_route_forward(x, w, b, "sm90")          # Cin 12
+    with pytest.raises(ValueError, match="route"):
+        _conv3x3_route_forward(x, w, b, "cudnn")
+    with pytest.raises(ValueError, match="cuda"):
+        _conv3x3_route_forward(x.cpu(), w.cpu(), b.cpu(), "simple")
 
 
 def _g2(shape, seed, device):

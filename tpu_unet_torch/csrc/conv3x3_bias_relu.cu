@@ -19,21 +19,51 @@
 // gives K = 9, under one tensor-core K step) and past Cout. Offsets are
 // 64-bit: a batch of 16 tiles of 572^2 holds ~333 M elements per activation.
 //
+// Two routes, chosen by shape in ops/conv_pallas.py (`conv3x3_route`):
+//   * "sm90": bf16 with Cin and Cout multiples of 8 and a 16-byte aligned
+//     x, which is 17 of the U-Net's 18 convs: the loops of
+//     conv3x3_sm90.cuh with the bias + ReLU -> bf16 epilogue, fed the
+//     weights K-major ([Cout, 9, Cin], a fresh aligned copy the wrapper
+//     lays out per call);
+//   * "simple": the kernels below, for the rest: enc0_conv1 (Cin = 1,
+//     K = 9), f32, and ragged shapes or a misaligned x.
+//
 // What bounds it on the H100: at Cin = Cout = 64 one bf16 output pixel does
 // 2*9*64*64 = 73.7 kflop per ~256 bytes of input and output, about the
-// card's ~295 flop/byte ridge; every deeper layer has more flops per byte.
-// So the kernel is tensor-core bound. The design keeps the tensor cores fed
-// the simple way: a 128-pixel x 64-channel block tile, so every staged input
-// element feeds 64 output channels and every staged weight element 128
-// pixels; bf16 goes through the tensor cores (wmma m16n16k16, which lowers
-// to mma.sync) into f32 accumulators. f32 inputs take the same tiling with
-// f32 FMAs (no TF32), so comparisons in f32 stay meaningful.
-// Not yet here: wgmma, TMA loads and a multi-stage shared-memory ring.
+// card's ~295 flop/byte ridge (enc0_conv2 and dec0_conv2 are bound by bytes
+// and operations alike, ~0.4 and ~0.2 ms per chunk); every deeper layer has
+// more flops per byte and is bound by the tensor cores, down to the
+// bottleneck (M = 12,544 pixels per chunk), where the grid must fill 132
+// SMs. What the sm90 route does about it (ops/conv_pallas.py::sm90_plan
+// picks the loop, and the flat loop's block):
+//   * Cin, Cout <= 64 (enc0_conv2, dec0_conv2): the strip loop. Its input
+//     is read once per 2 x 88 output tile instead of once per tap, the
+//     weights stay in shared memory, a ring of 3 strips keeps 2 in flight,
+//     and wgmma runs channels x pixels (m64n88), with fewer operand bytes
+//     per flop than m64n64;
+//   * the rest: the flat loop. wgmma at the full tensor-core rate, a
+//     cp.async ring that keeps S - 2 K steps in flight under the MMAs,
+//     64-channel K steps with no division in the loop, 256 x 128 blocks
+//     (one per SM: half the weight traffic per output of a 128-row block;
+//     the bottleneck still has 392 blocks), 128 x 64 with two blocks per
+//     SM where Cout is 64 (dec0_conv1), and 16-byte stores through a
+//     shared-memory tile. The deep layers run at ~50% of the tensor-core
+//     peak: each K step's 48 KB come from L2 at ~7 TB/s, which the tile
+//     shape, not the ring, sets.
+//
+// The simple route: a 128-pixel x 64-channel block tile, so every staged
+// input element feeds 64 output channels and every staged weight element
+// 128 pixels; bf16 goes through the tensor cores (wmma m16n16k16, which
+// lowers to mma.sync) into f32 accumulators, with one shared-memory stage.
+// f32 inputs take the same tiling with f32 FMAs (no TF32), so comparisons
+// in f32 stay meaningful.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -331,6 +361,27 @@ extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* b
   else
     conv3x3_bias_relu_f32_kernel<false><<<grid_for(g), THREADS, 0, s>>>(xp, wp, bp, yp, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sm90 route: x [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major),
+// b [Cout] bf16 -> y [B, H-2, W-2, Cout] bf16. Cin, Cout multiples of 8,
+// x, w, y 16-byte aligned. ops/conv_pallas.py::sm90_plan picks the loop
+// (`strip`) and, for the flat loop, the block BM x BN; the ring, grid and
+// shared memory follow from them here (the strip loop's grid from the
+// card's `sms`). A block not built here, or shapes the loop does not take,
+// return cudaErrorInvalidValue.
+extern "C" int conv3x3_bias_relu_sm90(const void* x, const void* w, const void* b, void* y,
+                                      int batch, int H, int W, int Cin, int Cout, int strip,
+                                      int bm, int bn, int sms, void* stream) {
+  if (batch < 1 || H < 3 || W < 3) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int E = sm90::BIAS_RELU_BF16;
+  if (strip) return sm90::launch_strip<E>(sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, 64),
+                                          sms, s);
+  const sm90::Conv p = sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, bn);
+  if (bm == 128 && bn == 64) return sm90::launch<128, 64, E>(p, s);
+  if (bm == 256 && bn == 128) return sm90::launch<256, 128, E>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tpu_unet_torch_cuda_error_string(int code) {

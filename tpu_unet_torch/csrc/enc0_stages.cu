@@ -28,27 +28,34 @@
 // bound it too, barely. The designs:
 //   * conv1: a thread owns 8 output channels of one pixel (one 16-byte
 //     store); neighbouring threads share the pixel's 9 inputs through L1;
-//   * conv2: K4's conv2 (csrc/enc0_chain.cu) with its input read from
-//     device memory: one block per SM walks over 8 x 32 output tiles with the
-//     weights resident in shared memory; per tile the (8+2) x (32+2) x CP
-//     bf16 input patch is staged with 16-byte loads (channels past Cin zero),
-//     and an implicit GEMM on mma.sync m16n8k16 bf16 -> f32 (M = 256 pixels,
-//     N = Cout, K = 9 * CP tap-major) runs K4's loop in K4's order, so the
-//     same inputs give K4's sums bit for bit;
+//   * conv2: the strip loop of conv3x3_sm90.cuh (K1's bf16 route takes it
+//     at enc0_conv2 and dec0_conv2) with the f32 or ReLU -> bf16 epilogue:
+//     persistent blocks, the 9 x 64 x 64 weights resident in shared
+//     memory, a tile of 2 output rows x 88 columns whose input strip (4
+//     rows x 90 pixels x 64 channels, channels past Cin zero-filled) is
+//     copied once, a ring of 3 strips with 2 in flight under the current
+//     tile's 72 wgmma m64n88k16 (channels x pixels: fewer shared-memory
+//     operand bytes per flop than m64n64), and 16-byte stores through a
+//     transposed staging tile. So each input row is read twice (the second time mostly from
+//     L2, by the tile below) instead of 9 times, and the output written
+//     once. The f32 sums are the wgmma's, no longer K4's mma.sync loop
+//     (csrc/enc0_chain.cu), so the staged chain may differ from K4 in the
+//     last bit;
 //   * pool/quantize: a thread owns 8 channels of one 2x2 window: it reads
 //     the window once (16- or 32-byte loads) and writes the four skip values
 //     and the pooled value.
-// Not yet here: wgmma, TMA, a cp.async ring.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "conv3x3_sm90.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_C2 = 64;                // conv2: the resident weights fit shared memory
+constexpr int MAX_C2 = 64;                // conv2: the strip loop's resident weights
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -119,140 +126,6 @@ conv1_kernel(const TX* __restrict__ x, const float* __restrict__ w9,
     o.z = pack_bf16x2(acc[4], acc[5]);
     o.w = pack_bf16x2(acc[6], acc[7]);
     *reinterpret_cast<uint4*>(out + p * C + c0) = o;
-  }
-}
-
-// ---- conv2 -----------------------------------------------------------------
-constexpr int TH = 8;                     // output rows per tile: one per warp
-constexpr int TW = 32;                    // output columns per tile
-constexpr int PH = TH + 2, PW = TW + 2;   // input patch
-
-struct Geom2 {
-  int B, H, W, Ho, Wo, Cin, CP, Cout;
-  int tiles_r, tiles_c;
-  long long tiles;
-  int lda;          // bytes per patch pixel in shared memory: 2*CP + 16
-  int ldw;          // bytes per weight row (one output channel): 18*CP + 16
-};
-
-__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// h [B, H, W, Cin] bf16 bits; w2t bf16 bits [Cout, 9, CP] (each output
-// channel's K-contiguous row, zero past Cin); out [B, H-2, W-2, Cout] f32,
-// or bf16(relu(.)) bits when RELU_BF16.
-template <bool RELU_BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-conv2_kernel(const uint16_t* __restrict__ h, const uint16_t* __restrict__ w2t,
-             void* __restrict__ out, Geom2 g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* patch = smem;
-  unsigned char* w2s = smem + PH * PW * g.lda;
-
-  const int CP = g.CP;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane >> 2;
-  const int tq = lane & 3;
-  const int nt = g.Cout / 8;              // n8 tiles of output channels
-
-  const int row_vecs = 9 * CP * 2 / 16;   // uint4 per weight row
-  for (int i = threadIdx.x; i < g.Cout * row_vecs; i += THREADS) {
-    const int n = i / row_vecs, v = i - n * row_vecs;
-    reinterpret_cast<uint4*>(w2s + n * g.ldw)[v] =
-        reinterpret_cast<const uint4*>(w2t + (long long)n * 9 * CP)[v];
-  }
-
-  const int pix_vecs = CP / 8;            // uint4 per patch pixel
-  const int in_vecs = g.Cin / 8;
-  const int tiles_img = g.tiles_r * g.tiles_c;
-  for (long long t = blockIdx.x; t < g.tiles; t += gridDim.x) {
-    const int b = (int)(t / tiles_img);
-    const int rem = (int)(t - (long long)b * tiles_img);
-    const int y0 = (rem / g.tiles_c) * TH;
-    const int x0 = (rem % g.tiles_c) * TW;
-
-    __syncthreads();                      // the previous tile is done with the patch
-    for (int i = threadIdx.x; i < PH * PW * pix_vecs; i += THREADS) {
-      const int pix = i / pix_vecs, v = i - pix * pix_vecs;
-      const int r = pix / PW, c = pix - r * PW;
-      const int gy = y0 + r, gx = x0 + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gy < g.H && gx < g.W && v < in_vecs)
-        val = *reinterpret_cast<const uint4*>(
-            h + (((long long)b * g.H + gy) * g.W + gx) * g.Cin + v * 8);
-      *reinterpret_cast<uint4*>(patch + pix * g.lda + v * 16) = val;
-    }
-    __syncthreads();
-
-    // warp w computes tile row w, columns [16i, 16i + 16) for i = 0, 1
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap - dy * 3;
-      for (int k0 = 0; k0 < CP; k0 += 16) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const unsigned char* p =
-              patch + ((warp + dy) * PW + i * 16 + grp + dx) * g.lda + k0 * 2 + tq * 4;
-          af[i][0] = ld32(p);
-          af[i][1] = ld32(p + 8 * g.lda);
-          af[i][2] = ld32(p + 16);
-          af[i][3] = ld32(p + 8 * g.lda + 16);
-        }
-        const unsigned char* q = w2s + grp * g.ldw + (tap * CP + k0) * 2 + tq * 4;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j < nt) {
-            const uint32_t bf[2] = {ld32(q + j * 8 * g.ldw), ld32(q + j * 8 * g.ldw + 16)};
-            mma_bf16(acc[0][j], af[0], bf);
-            mma_bf16(acc[1][j], af[1], bf);
-          }
-        }
-      }
-    }
-
-    // Accumulator r of tile (i, j): column 16i + grp + 8*(r/2) of tile row
-    // `warp`, channel 8j + 2*tq + r%2.
-    const int oy = y0 + warp;
-    if (oy >= g.Ho) continue;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j < nt) {
-          const int ch = j * 8 + tq * 2;
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int ox = x0 + i * 16 + grp + 8 * hh;
-            if (ox < g.Wo) {
-              const long long o = (((long long)b * g.Ho + oy) * g.Wo + ox) * g.Cout + ch;
-              const float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
-              if constexpr (RELU_BF16)
-                *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(out) + o) =
-                    pack_bf16x2(relu(v0), relu(v1));
-              else
-                *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
-            }
-          }
-        }
-      }
   }
 }
 
@@ -377,45 +250,19 @@ extern "C" int enc0_conv1_stage(const void* x, const void* w9, const void* b, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// h [B, H, W, Cin] bf16, w2t bf16 [Cout, 9, CP] with CP = Cin rounded up to
-// 16 (zero past Cin) -> out [B, H-2, W-2, Cout], f32 or (relu_bf16)
-// bf16(relu(.)). Cin and Cout multiples of 8, at most 64.
-extern "C" int enc0_conv2_stage(const void* h, const void* w2t, void* out, int batch, int H,
-                                int W, int Cin, int Cout, int relu_bf16, void* stream) {
-  if (batch < 1 || H < 3 || W < 3 || Cin < 8 || Cin % 8 || Cin > MAX_C2 || Cout < 8 ||
-      Cout % 8 || Cout > MAX_C2)
+// h [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major) -> out [B, H-2,
+// W-2, Cout], f32 or (relu_bf16) bf16(relu(.)). Cin and Cout multiples of
+// 8, at most 64; h, w, out 16-byte aligned. The strip loop's grid is one
+// persistent block per SM of the card's `sms`.
+extern "C" int enc0_conv2_stage(const void* h, const void* w, void* out, int batch, int H,
+                                int W, int Cin, int Cout, int relu_bf16, int sms,
+                                void* stream) {
+  if (batch < 1 || H < 3 || W < 3 || Cin > MAX_C2 || Cout > MAX_C2)
     return static_cast<int>(cudaErrorInvalidValue);
-  Geom2 g;
-  g.B = batch;
-  g.H = H;
-  g.W = W;
-  g.Ho = H - 2;
-  g.Wo = W - 2;
-  g.Cin = Cin;
-  g.CP = (Cin + 15) / 16 * 16;
-  g.Cout = Cout;
-  g.tiles_r = (g.Ho + TH - 1) / TH;
-  g.tiles_c = (g.Wo + TW - 1) / TW;
-  g.tiles = (long long)batch * g.tiles_r * g.tiles_c;
-  g.lda = 2 * g.CP + 16;
-  g.ldw = 18 * g.CP + 16;
-  const int smem = PH * PW * g.lda + Cout * g.ldw;
-  void (*kernel)(const uint16_t*, const uint16_t*, void*, Geom2) =
-      relu_bf16 ? &conv2_kernel<true> : &conv2_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long blocks = g.tiles < (long long)sms * per_sm ? g.tiles : (long long)sms * per_sm;
-  kernel<<<(unsigned)blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(h), static_cast<const uint16_t*>(w2t), out, g);
-  return static_cast<int>(cudaGetLastError());
+  const sm90::Conv p = sm90::make_conv(h, w, nullptr, out, batch, H, W, Cin, Cout, 64);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return relu_bf16 ? sm90::launch_strip<sm90::RELU_BF16>(p, sms, s)
+                   : sm90::launch_strip<sm90::F32>(p, sms, s);
 }
 
 // h [B, H, W, C] (h_bf16: bf16, else f32), H and W even, C % 8 == 0.

@@ -122,6 +122,9 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
+        ll, f = ctypes.c_longlong, ctypes.c_float
+        lib.conv3x3_bias_relu_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.conv3x3_bias_relu_sm90.restype = i
         for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16", "conv_kxk_fused_s8"):
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
@@ -129,7 +132,6 @@ def load_library() -> ctypes.CDLL:
         lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                             i, p]
         lib.edt_column_pass_f32.restype = i
-        ll, f = ctypes.c_longlong, ctypes.c_float
         lib.enc0_chain.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.enc0_chain.restype = i
         lib.concat_quantize.argtypes = [p, p, p, ll, ll, ll, ll, i, i, i, i, i, i, f, i, p]
@@ -140,7 +142,7 @@ def load_library() -> ctypes.CDLL:
         lib.row_gather_f32.restype = i
         lib.enc0_conv1_stage.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         lib.enc0_conv1_stage.restype = i
-        lib.enc0_conv2_stage.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.enc0_conv2_stage.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.enc0_conv2_stage.restype = i
         lib.enc0_pool_quant_stage.argtypes = [p, p, p, i, i, i, i, i, i, f, i, p]
         lib.enc0_pool_quant_stage.restype = i

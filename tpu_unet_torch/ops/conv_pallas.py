@@ -1,11 +1,15 @@
-"""Fused 3x3 valid convolution + bias + ReLU: the Hopper kernel and its
+"""Fused 3x3 valid convolution + bias + ReLU: the Hopper kernels and their
 plain PyTorch version.
 
 Counterpart of ``tpu_unet/ops/conv_pallas.py``. The layout is the JAX
 package's: x NHWC ``[B, H, W, Cin]``, w HWIO ``[3, 3, Cin, Cout]``, b
-``[Cout]`` -> ``[B, H-2, W-2, Cout]``. The kernel is CUDA C++ in
+``[Cout]`` -> ``[B, H-2, W-2, Cout]``. The kernels are CUDA C++ in
 ``tpu_unet_torch/csrc/conv3x3_bias_relu.cu``, built on first use
-(``ops/_build.py``).
+(``ops/_build.py``), on one of two routes that `conv3x3_route` picks by
+shape: ``"sm90"`` (bf16, Cin and Cout multiples of 8, x 16-byte aligned:
+the wgmma loops of ``csrc/conv3x3_sm90.cuh``, flat or strip, as
+`sm90_plan` picks them) and ``"simple"`` (the one-stage kernels: Cin = 1,
+f32, ragged or misaligned shapes).
 
 `conv3x3_bias_relu` dispatches on the device of `x`: a CPU tensor goes to
 `conv3x3_bias_relu_plain`, a CUDA tensor launches the kernel or raises. It
@@ -18,6 +22,8 @@ card, as JAX leaves them to XLA) for dx and dw, and a sum for db.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -27,6 +33,56 @@ from tpu_unet_torch.ops import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2 ** 31 - 1
+
+#: The flat loop's blocks csrc/conv3x3_bias_relu.cu builds (BM output
+#: pixels x BN output channels): 128 x 64, two per SM, where Cout <= 64;
+#: 256 x 128, one per SM (half the weight traffic per output), above.
+SM90_FLAT_BLOCKS = ((128, 64), (256, 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """Which sm90 loop runs a conv: `kind` 'strip' (Cin and Cout <= 64;
+    csrc/conv3x3_sm90.cuh's persistent loop, whose tile, ring and grid are
+    its own) or 'flat', with blocks of `bm` output pixels (flat over the
+    batch) x `bn` output channels. The ring, grid and shared memory follow
+    from these in the CUDA entry."""
+    kind: str
+    bm: int = 0
+    bn: int = 0
+
+
+def sm90_plan(cin: int, cout: int) -> Sm90Plan:
+    """The sm90 loop for a conv of `cin` -> `cout` channels: the strip loop
+    where both are <= 64 (one K step per tap, one block column), else the
+    flat loop with 128 x 64 blocks where Cout <= 64 and 256 x 128 above."""
+    if cin <= 64 and cout <= 64:
+        return Sm90Plan("strip")
+    bm, bn = SM90_FLAT_BLOCKS[0] if cout <= 64 else SM90_FLAT_BLOCKS[1]
+    return Sm90Plan("flat", bm, bn)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    """The SMs of a CUDA device, which sizes the strip loop's grid."""
+    return _sms_of(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def conv3x3_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel route `conv3x3_bias_relu` takes for x and w on the card:
+    ``"sm90"`` for bf16 with Cin and Cout multiples of 8 and x 16-byte
+    aligned, else ``"simple"``. It depends on dtype, channel counts and the
+    alignment of x only, not on the device (the sm90 route reads a fresh
+    K-major copy of w)."""
+    cin, cout = x.shape[-1], w.shape[-1]
+    if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+            and x.data_ptr() % 16 == 0):
+        return "sm90"
+    return "simple"
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
@@ -113,11 +169,12 @@ def conv3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     relu(conv_valid(x, w) + b) [B, H-2, W-2, Cout], differentiable in x, w
     and b.
 
-    On a CPU tensor: `conv3x3_bias_relu_plain`. On a CUDA tensor: the Hopper
-    kernel, which takes contiguous float32 or bfloat16 tensors of one dtype,
-    writes that dtype, and counts each launch in
-    ``conv3x3_bias_relu.launches``. The backward runs library convs on
-    either device."""
+    On a CPU tensor: `conv3x3_bias_relu_plain`. On a CUDA tensor: a Hopper
+    kernel on the route `conv3x3_route` picks, which takes contiguous
+    float32 or bfloat16 tensors of one dtype and writes that dtype. Each
+    launch counts in ``conv3x3_bias_relu.launches``, and the sm90 route's
+    also in ``conv3x3_bias_relu.sm90_launches``. The backward runs library
+    convs on either device."""
     return _Conv3x3BiasReLU.apply(x, w, b, out_dtype)
 
 
@@ -129,6 +186,38 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"conv3x3_bias_relu runs on cpu or cuda, not {x.device}")
     _check_shapes(x, w, b)
     _check_kernel_args(x, w, b, out_dtype)
+    if conv3x3_route(x, w) == "sm90":
+        return _launch_sm90(x, w, b)
+    return _launch_simple(x, w, b)
+
+
+def _raise_on(rc: int, x: torch.Tensor, w: torch.Tensor) -> None:
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_bias_relu launch failed: CUDA error {rc} "
+                           f"({_build.cuda_error_string(rc)}) at x "
+                           f"{tuple(x.shape)}, w {tuple(w.shape)}")
+
+
+def _launch_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The sm90 route on checked bf16 CUDA tensors, on `sm90_plan`'s loop."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    plan = sm90_plan(cin, cout)
+    wk = w.permute(3, 0, 1, 2).contiguous()          # [Cout, 9, Cin]: K-major rows
+    y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _build.load_library().conv3x3_bias_relu_sm90(
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
+            int(plan.kind == "strip"), plan.bm, plan.bn, _sms(x.device), stream)
+    _raise_on(rc, x, w)
+    conv3x3_bias_relu.launches += 1
+    conv3x3_bias_relu.sm90_launches += 1
+    return y
+
+
+def _launch_simple(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The simple route (the one-stage kernels) on checked CUDA tensors."""
     bsz, h, wd, cin = x.shape
     cout = w.shape[3]
     y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
@@ -142,13 +231,32 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                 bsz, h, wd, cin, cout, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_bias_relu launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x "
-                           f"{tuple(x.shape)}, w {tuple(w.shape)}")
+    _raise_on(rc, x, w)
     conv3x3_bias_relu.launches += 1
     return y
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+def _conv3x3_route_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           route: str) -> torch.Tensor:
+    """The forward on CUDA tensors through the named route, whatever
+    `conv3x3_route` would pick: the simple kernel at a shape the sm90 loop
+    takes. For comparing and timing the two on the card; no path of the
+    model calls it."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the routes run on cuda, not {x.device}")
+    _check_shapes(x, w, b)
+    _check_kernel_args(x, w, b, None)
+    if route == "simple":
+        return _launch_simple(x, w, b)
+    if route != "sm90":
+        raise ValueError(f"no route {route!r}")
+    if conv3x3_route(x, w) != "sm90":
+        raise ValueError(f"the sm90 route does not take {x.dtype} x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    return _launch_sm90(x, w, b)
+
+
+#: Kernel launches since the count was last set to 0 (CPU calls don't
+#: count): all routes, and the sm90 route's alone.
 conv3x3_bias_relu.launches = 0
+conv3x3_bias_relu.sm90_launches = 0

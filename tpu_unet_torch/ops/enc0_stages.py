@@ -37,11 +37,13 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.models.unet import _max_pool2
 from tpu_unet_torch.ops import _build
+from tpu_unet_torch.ops.conv_pallas import _sms
 from tpu_unet_torch.ops.conv_tiles import _scalar
 from tpu_unet_torch.ops.interleave import _on_cuda
 
 SKIP_KINDS = (None, "bf16", "int8")
-#: Largest Cin and Cout the conv2 kernel takes: its weights stay in shared memory.
+#: Largest Cin and Cout the conv2 kernel takes: the strip loop of
+#: csrc/conv3x3_sm90.cuh keeps 9 x 64 x 64 weights in shared memory.
 CONV2_MAX_C = 64
 
 
@@ -176,18 +178,15 @@ def conv2_stage(h: torch.Tensor, w: torch.Tensor, *, relu_bf16: bool = False) ->
         raise ValueError(f"the conv2_stage kernel takes C and C' up to {CONV2_MAX_C}, got "
                          f"{cin} and {cout}")
     h = _aligned(h)
-    cp = -(-cin // 16) * 16
-    # each output channel's K-contiguous row [C', 9, CP]: tap-major, input
-    # channels zero-padded to CP (K4's layout)
-    w2t = torch.zeros((cout, 9, cp), dtype=torch.bfloat16, device=h.device)
-    w2t[:, :, :cin] = w.reshape(9, cin, cout).permute(2, 0, 1)
+    # each output channel's K-contiguous row [C', 9, C]: tap-major
+    w2t = w.reshape(9, cin, cout).permute(2, 0, 1).contiguous()
     out = torch.empty((bsz, hh - 2, ww - 2, cout), device=h.device,
                       dtype=torch.bfloat16 if relu_bf16 else torch.float32)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = _build.load_library().enc0_conv2_stage(
             h.data_ptr(), w2t.data_ptr(), out.data_ptr(), bsz, hh, ww, cin, cout,
-            int(relu_bf16), stream)
+            int(relu_bf16), _sms(h.device), stream)
     _raise_on(rc, "conv2_stage", h.shape)
     conv2_stage.launches += 1
     return out
