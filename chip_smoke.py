@@ -35,19 +35,26 @@ Phases, each printing its own lines:
   8. training times, with CUDA events: a train step under 'pallas' and
      'xla' (bf16) split into augmentation, weight maps, forward+backward and
      optimizer, and K2 against its plain version;
-  9. K3, the fused int8 conv of quantized serving, against its plain
-     version, bit for bit (tolerance 0), and against the int8 library route
-     (im2col + torch._int_mm): the 14 int8 conv shapes of a 572x572 tile
-     (batch 2), ragged and misaligned shapes, both out kinds; bf16 inputs at
-     BF16_TOL;
+  9. K3, the fused int8 conv of quantized serving, as routed (the int8
+     wgmma loop, "sm90", where it takes the shape) and through the forced
+     simple route (the one-stage kernel) against its plain version, bit for
+     bit (tolerance 0), and against the int8 library route (im2col +
+     torch._int_mm): the 14 int8 conv shapes of a 572x572 tile (batch 2, all
+     on the loop), the loop's edge shapes (M off the block, Cout
+     16/48/64/200/1024, Cin 16/48/1040), ragged and misaligned shapes (the
+     simple route), both out kinds, each launch's route checked; bf16 inputs
+     at BF16_TOL;
  10. int8 serving: the full-width bf16 U-Net (conv_impl='pallas', seed 0)
      through evaluate(quant='int8', quant_path=...): calibration, the .npz,
-     14 K3 launches per chunk, finite metrics, a second evaluate served from
-     the .npz with equal metrics, and every stage of QuantInference under
-     'pallas' (K3) equal to 'xla' (the library route);
+     14 K3 launches per chunk, all on the sm90 loop, finite metrics, a
+     second evaluate served from the .npz with equal metrics, and every
+     stage of QuantInference under 'pallas' (K3) equal to 'xla' (the library
+     route);
  11. int8 serving times: evaluate_batch under int8 'pallas' and 'xla' and
-     float 'pallas' and 'xla', and each int8 conv shape of one 16-tile chunk
-     under K3, the library route and the plain version;
+     float 'pallas' and 'xla', a profile by kernel group, and each int8 conv
+     shape of one 16-tile chunk in turns under K3 as routed, the one-stage
+     kernel (forced simple route) and the library route, then the same three
+     in reverse, beside the plain version and the bound, in TOP/s;
  12. the research int8 forward's kernels against their plain versions at
      one 16-tile chunk's shapes: K4 (the fused enc0 chain, bf16 x
      [16,572,572,1], C 64, bf16 and int8 skip, pool modes 'fused' and
@@ -59,8 +66,8 @@ Phases, each printing its own lines:
      the model trained for 250 steps on the serving tiles and calibrated
      as evaluate(quant='int8') does (random weights leave most margins
      within rounding noise), fused (fused_enc0 + fused_concat: K4 1, K5 4,
-     K3 14 launches per chunk) and paired (pair_level0: K6a, K6b, K6c 1
-     each, K3 14): finite metrics; class maps equal to the production int8
+     K3 14 launches per chunk, on the sm90 loop) and paired (pair_level0:
+     K6a, K6b, K6c 1 each, K3 14 on the loop): finite metrics; class maps equal to the production int8
      forward's on >= 0.995 of the pixels; the logits against the same
      formulation through the kernels' plain versions and (pair) against
      production within MODEL_TOL of the scale on >= 0.999 of the values;
@@ -68,18 +75,22 @@ Phases, each printing its own lines:
      int8 'pallas' in turns, a profile of each formulation by kernel group,
      and K4, K5 and K6a-c per chunk against their plain versions and the
      library routes they replace.
- 15. the fused k x k int8 conv of the phase-packed level 0 against its plain
-     version, bit for bit, at the path's packed shapes (batch 2), a 3x3
-     shape through conv_rows3_col, ragged, odd-Cin and misaligned cases, and
-     against the library route at the full 16-tile packed shapes;
+ 15. the fused k x k int8 conv of the phase-packed level 0, as routed and
+     through the forced simple route, against its plain version, bit for
+     bit, at the path's packed shapes (batch 2, the sm90 loop), a 3x3 shape
+     through conv_rows3_col, the loop's edge shapes (Cin 16/48/1040, KH 2
+     and 3), ragged, odd-Cin and misaligned cases (the simple route), each
+     launch's route checked, and against the library route at the full
+     16-tile packed shapes;
  16. int8-phase serving: evaluate(quant='int8-phase', quant_path=...) on the
      model phase 13 trained: the k x k kernel 2 and K3 13 launches per chunk
-     under 'pallas', none under 'xla', the .npz round trip, every stage
-     'pallas' vs 'xla' bit for bit, class maps equal to the production int8
-     forward's on >= 0.995 of the pixels;
+     under 'pallas', all on the sm90 loop, none under 'xla', the .npz round
+     trip, every stage 'pallas' vs 'xla' bit for bit, class maps equal to
+     the production int8 forward's on >= 0.995 of the pixels;
  17. int8-phase times: evaluate_batch under int8-phase 'pallas' and 'xla'
      and production int8 'pallas' in turns and a profile, the k x k kernel
-     per chunk against its plain version and the library route, a DIC-HeLa
+     per chunk in turns as routed, on the one-stage kernel and on the
+     library route, beside its plain version and the bound, a DIC-HeLa
      train step of the phase-packed model against the plain one ('xla'),
      and the deep-shootout probe (python -m tpu_unet_torch.probes.deep_shootout)
      at batch 16;
@@ -860,47 +871,86 @@ def _k3_inputs(shape, cout, dtype, gen, offset=0, k=3):
             torch.randn((cout,), generator=gen, device=DEVICE) * 0.1)
 
 
+# K3's int8 wgmma loop off the model's shapes: M not a multiple of the
+# block, Cout 16/48/64/200/1024, Cin 16/48/1040 (a part-filled 128-channel K
+# step), both blocks; Cout 200 takes the loop with bf16 out only.
+K3_LOOP_EDGES = [((2, 37, 45, 128), 64), ((1, 10, 30, 16), 16), ((2, 9, 21, 48), 48),
+                 ((3, 13, 29, 128), 200), ((1, 10, 12, 1040), 1024), ((2, 8, 20, 256), 1024)]
+
+
+def _k3_launch(x, w, alpha, beta, out_kind):
+    """K3 through `conv3x3_fused`, and the route its launch took (from the
+    sm90 count), which must be the one `conv3x3_fused_route` names."""
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused, conv3x3_fused_route
+
+    sm90 = conv3x3_fused.sm90_launches
+    got = conv3x3_fused(x, w, alpha, beta, out_kind=out_kind)
+    took = "sm90" if conv3x3_fused.sm90_launches > sm90 else "simple"
+    if took != conv3x3_fused_route(x, w, out_kind):
+        raise AssertionError(f"K3 at x {tuple(x.shape)} took the {took} route")
+    return got, took
+
+
 @torch.inference_mode()
 def phase9_k3_vs_plain(cfg):
-    from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
-                                               conv3x3_int8_xla)
+    """K3 as routed and through the forced simple route against its plain
+    version, and the library route, bit for bit: the 14 int8 shapes (batch
+    2; every one on the sm90 loop), the loop's edge shapes, ragged and
+    misaligned shapes (the simple route), both out kinds; bf16 inputs at
+    BF16_TOL. Returns (max int8 error, max bf16 error)."""
+    from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3_fused,
+                                               conv3x3_fused_plain, conv3x3_int8_xla)
 
     gen = torch.Generator(device=DEVICE).manual_seed(9)
-    cases = [(name, (2, s, s, cin), cout, 0) for name, s, cin, cout in int8_shapes(cfg)]
-    cases += [("ragged", (2, 10, 12, 16), 8, 0), ("ragged", (1, 9, 13, 24), 40, 0),
-              ("misaligned", (2, 10, 12, 16), 8, 3), ("ragged", (1, 12, 40, 3), 5, 0),
-              ("ragged", (3, 37, 45, 136), 72, 0), ("misaligned", (2, 20, 70, 128), 256, 1)]
-    for label, shape, cout, offset in cases:
+    cases = [(name, (2, s, s, cin), cout, 0, "sm90") for name, s, cin, cout in int8_shapes(cfg)]
+    cases += [("loop edge", shape, cout, 0, None) for shape, cout in K3_LOOP_EDGES]
+    cases += [("Cout 8", (2, 10, 12, 16), 8, 0, None),        # sm90 for bf16 out only
+              ("ragged", (1, 9, 13, 24), 40, 0, "simple"),
+              ("misaligned", (2, 10, 12, 16), 8, 3, "simple"),
+              ("ragged", (1, 12, 40, 3), 5, 0, "simple"),
+              ("ragged", (3, 37, 45, 136), 72, 0, "simple"),
+              ("misaligned", (2, 20, 70, 128), 256, 1, "simple")]
+    routes = {"sm90": 0, "simple": 0}
+    for label, shape, cout, offset, want in cases:
         x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, gen, offset)
         for out_kind in ("int8", "bf16"):
-            got = conv3x3_fused(x, w, alpha, beta, out_kind=out_kind)
+            got, took = _k3_launch(x, w, alpha, beta, out_kind)
+            routes[took] += 1
+            if want is not None and took != want:
+                raise AssertionError(f"K3 {label} {shape} -> {cout} ({out_kind}) took {took}")
+            simple = _conv3x3_fused_route_forward(x, w, alpha, beta, "simple", out_kind)
             ref = conv3x3_fused_plain(x, w, alpha, beta, out_kind)
             lib = conv3x3_int8_xla(x, w, alpha, beta, out_kind)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             lib_err = (lib.float() - ref.float()).abs().max().item()
             share = (ref > 0).float().mean().item()
-            log(f"phase 9: K3 {label:17s} x{list(shape)} -> {cout} out {out_kind}: "
-                f"max|err| {err} vs plain, {lib_err} vs library; nonzero share {share:.3f}")
-            if not (got.dtype == ref.dtype and torch.equal(got, ref) and torch.equal(lib, ref)):
+            log(f"phase 9: K3 {label:17s} x{list(shape)} -> {cout} out {out_kind} ({took}): "
+                f"max|err| {err} vs plain, {lib_err} vs library; simple route equal "
+                f"{torch.equal(simple, ref)}; nonzero share {share:.3f}")
+            if not (got.dtype == ref.dtype and torch.equal(got, ref) and torch.equal(lib, ref)
+                    and torch.equal(simple, ref)):
                 raise AssertionError(f"K3 differs at {label} {shape} -> {cout} ({out_kind})")
             if not 0.0 < share < 1.0:
                 raise AssertionError(f"degenerate K3 test outputs at {label} {shape}")
+        del x, w, got, simple, ref, lib
     bf16_err = 0.0
     for shape, cout in [((2, 34, 282, 128), 128), ((2, 20, 70, 64), 128),
                         ((2, 11, 19, 3), 20), ((1, 9, 13, 24), 40)]:
         x, w, alpha, beta = _k3_inputs(shape, cout, torch.bfloat16, gen)
-        got = conv3x3_fused(x, w, alpha, beta)
+        got, took = _k3_launch(x, w, alpha, beta, "auto")
         ref = conv3x3_fused_plain(x, w, alpha, beta)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         tol = BF16_TOL * max(ref.float().abs().max().item(), 1.0)
-        log(f"phase 9: K3 bf16 x{list(shape)} -> {cout}: max|err| {err:.3g} (bound {tol:.3g})")
-        if not (got.dtype == torch.bfloat16 and err <= tol):
+        log(f"phase 9: K3 bf16 x{list(shape)} -> {cout} ({took}): max|err| {err:.3g} "
+            f"(bound {tol:.3g})")
+        if not (got.dtype == torch.bfloat16 and err <= tol and took == "simple"):
             raise AssertionError(f"K3 bf16 differs at {shape} -> {cout}")
         bf16_err = max(bf16_err, err)
-    log("phase 9: ok, K3 bit-exact (tolerance 0) against its plain version and the "
-        f"library route on int8 inputs; bf16 inputs within {BF16_TOL} of the scale")
+    log(f"phase 9: ok, K3 bit-exact (tolerance 0) on both routes against its plain version "
+        f"and the library route on int8 inputs ({routes['sm90']} launches on the sm90 loop, "
+        f"{routes['simple']} on the simple kernel); bf16 inputs within {BF16_TOL} of the scale")
     return 0.0, bf16_err
 
 
@@ -922,17 +972,18 @@ def phase10_serve_int8(cfg):
         os.remove(qpath)
     results, launches = [], []
     for run in ("calibrated and saved", "served from the .npz"):
-        conv3x3_fused.launches = 0
+        conv3x3_fused.launches = conv3x3_fused.sm90_launches = 0
         t0 = time.perf_counter()
         results.append(evaluate(model, data, tile_out=TILE_OUT, verbose=False,
                                 quant="int8", quant_path=qpath))
         torch.cuda.synchronize()
-        launches.append(conv3x3_fused.launches)
+        launches.append({"sm90": conv3x3_fused.sm90_launches,
+                         "simple": conv3x3_fused.launches - conv3x3_fused.sm90_launches})
         log(f"phase 10: evaluate(quant='int8') {run} in {time.perf_counter() - t0:.2f} s: "
-            f"{launches[-1]} K3 launches for {n_tiles} tiles in {n_chunks} chunk(s); "
+            f"K3 launches by route {launches[-1]} for {n_tiles} tiles in {n_chunks} chunk(s); "
             f"{json.dumps(results[-1])}")
-        if launches[-1] != 14 * n_chunks:
-            raise AssertionError(f"{launches[-1]} K3 launches, want 14 x {n_chunks}")
+        if launches[-1] != {"sm90": 14 * n_chunks, "simple": 0}:
+            raise AssertionError(f"K3 launches {launches[-1]}, want 14 x {n_chunks} on sm90")
         if not os.path.exists(qpath):
             raise AssertionError(f"{qpath} was not written")
     first, second = ({k: v for k, v in r.items() if k != "seconds"} for r in results)
@@ -970,12 +1021,45 @@ def phase10_serve_int8(cfg):
     return model, data, qp, launches[0]
 
 
+# The int8 kernels' timing turns (phases 11, 17): the kernel as routed, the
+# one-stage kernel through the forced simple route, the library route, then
+# the same three in reverse, each over REPS launches after a warm-up.
+TURN_KEYS = ("kernel", "simple", "library")
+TURN_REPS = {"kernel": 10, "simple": 5, "library": 5}
+
+
+def _in_turns(fns):
+    """{key: mean ms} of the callables `fns` (keyed by TURN_KEYS), timed in
+    turns: the keys in order, then reversed."""
+    runs = {k: [] for k in fns}
+    for k in TURN_KEYS + TURN_KEYS[::-1]:
+        runs[k].append(time_ms(fns[k], DEVICE, TURN_REPS[k]))
+    return {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+def _turns_line(t, ops):
+    return (f"kernel ({t['route']}, {t['block'][0]}x{t['block'][1]}) {t['kernel']:.3f} ms "
+            f"({ops / t['kernel'] / 1e9:.1f} TOP/s), simple {t['simple']:.3f} ms "
+            f"({ops / t['simple'] / 1e9:.1f} TOP/s), library {t['library']:.3f} ms "
+            f"({ops / t['library'] / 1e9:.1f} TOP/s), plain {t['plain']:.3f} ms, bound "
+            f"{t['bound']:.3f} ms ({t['bound_by']}; {ops / t['bound'] / 1e9:.0f} TOP/s)")
+
+
+def _require_groups(groups, *names):
+    """Fail unless every named kernel group of a profile has device time:
+    a kernel whose name fell into another group would read as 0."""
+    missing = [g for g in names if not groups.get(g, 0.0) > 0.0]
+    if missing:
+        raise AssertionError(f"no device time in the profile's groups {missing}")
+
+
 def phase11_time_int8(cfg, model, data, qp):
     from tpu_unet_torch.infer import TileInference
     from tpu_unet_torch.infer.quant import QuantInference
     from tpu_unet_torch.models import UNet
-    from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
-                                               conv3x3_int8_xla)
+    from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3_fused,
+                                               conv3x3_fused_plain, conv3x3_fused_route,
+                                               conv3x3_int8_xla, sm90_block)
 
     xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
     xla.load_state_dict(model.state_dict())
@@ -1009,34 +1093,42 @@ def phase11_time_int8(cfg, model, data, qp):
         + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items()))
     for name, ms in top:
         log(f"phase 11:   {ms / n:9.3f} ms/call  {name[:110]}")
+    tiles_s["int8 'pallas' profiled_ms_per_call"] = {
+        "device_busy": busy / n, **{g: ms / n for g, ms in groups.items()}}
+    _require_groups(groups, "K3 conv3x3_fused")
     del engines, xla
 
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    total = {"kernel": 0.0, "library": 0.0, "plain": 0.0}
+    total = dict.fromkeys(TURN_KEYS + ("plain",), 0.0)
     shapes = int8_shapes(cfg)
+    per_shape = {}
     with torch.inference_mode():
         for name, s, cin, cout in shapes:
             x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen)
-            t = {"kernel": time_ms(lambda: conv3x3_fused(x, w, alpha, beta,
-                                                         out_kind="int8"), DEVICE, 5),
-                 "library": time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), DEVICE, 5),
-                 "plain": time_ms(lambda: conv3x3_fused_plain(x, w, alpha, beta, "int8"), DEVICE, 2)}
+            nbytes, ops = conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)
+            t = _in_turns({
+                "kernel": lambda: conv3x3_fused(x, w, alpha, beta, out_kind="int8"),
+                "simple": lambda: _conv3x3_fused_route_forward(x, w, alpha, beta, "simple",
+                                                               "int8"),
+                "library": lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8")})
+            t["plain"] = time_ms(lambda: conv3x3_fused_plain(x, w, alpha, beta, "int8"),
+                                 DEVICE, 2)
+            t["route"] = conv3x3_fused_route(x, w, "int8")
+            t["block"] = list(sm90_block(cout))
+            t["bound"], t["bound_by"] = bound(nbytes, ops, "int8")
             for k in total:
                 total[k] += t[k]
-            nbytes, ops = conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)
-            b_ms, by = bound(nbytes, ops, "int8")
-            log(f"phase 11: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: K3 "
-                f"{t['kernel']:.3f} ms ({ops / t['kernel'] / 1e9:.1f} TOP/s), library "
-                f"{t['library']:.3f} ms ({ops / t['library'] / 1e9:.1f} TOP/s), plain "
-                f"{t['plain']:.3f} ms ({ops / t['plain'] / 1e9:.1f} TOP/s), bound "
-                f"{b_ms:.3f} ms ({by})")
+            per_shape[name] = t
+            log(f"phase 11: {name:17s} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: "
+                + _turns_line(t, ops))
             del x, w, alpha, beta
     total["bound"], total["bound_by"] = chunk_bound(shapes, "int8", 1, 1, 8)
+    total["per_shape"] = per_shape
     ops = sum(conv_cost(BATCH_TILES, s, cin, cout, 1, 1, 8)[1] for _, s, cin, cout in shapes)
     log(f"phase 11: 14 int8 convs of one {BATCH_TILES}-tile chunk ({ops / 1e12:.3f} T int8 "
-        f"ops): K3 {total['kernel']:.2f} ms ({ops / total['kernel'] / 1e9:.1f} TOP/s), "
-        f"library {total['library']:.2f} ms, plain {total['plain']:.2f} ms, bound "
-        f"{total['bound']:.3f} ms ({total['bound_by']})")
+        f"ops): K3 {total['kernel']:.3f} ms ({ops / total['kernel'] / 1e9:.1f} TOP/s), the "
+        f"simple kernel {total['simple']:.3f} ms, library {total['library']:.3f} ms, plain "
+        f"{total['plain']:.2f} ms, bound {total['bound']:.3f} ms ({total['bound_by']})")
     return total, tiles_s
 
 
@@ -1382,15 +1474,18 @@ def phase13_serve_research(cfg, data):
         qi, engine = _research_engine(model, qp, flags)
         for fn in fns.values():
             fn.launches = 0
+        fns["conv3x3_fused"].sm90_launches = 0
         ms, preds = engine.evaluate_batch(images, lab)
         torch.cuda.synchronize()
         launches[key] = {name: fn.launches for name, fn in fns.items() if fn.launches}
+        launches[key]["conv3x3_fused_sm90"] = fns["conv3x3_fused"].sm90_launches
         agree = (preds == prod_preds).float().mean().item()
         ms = ms.cpu().numpy()
         log(f"phase 13: research {key} {flags}: evaluate_batch of {n_tiles} tiles in "
             f"{n_chunks} chunk(s): launches {launches[key]}; (iou, pixel error) "
             f"{ms.tolist()}; class maps equal the production int8 forward's on {agree:.6f} "
             f"of the pixels")
+        want = {**want, "conv3x3_fused_sm90": want["conv3x3_fused"]}   # K3 all on the loop
         if launches[key] != {name: n * n_chunks for name, n in want.items()}:
             failed.append(f"{key}: launches {launches[key]}, want {want} x {n_chunks}")
         if not (np.isfinite(ms[:, 1]).all() and agree >= RESEARCH_AGREE):
@@ -1552,37 +1647,54 @@ def kxk_cost(batch: int, s: int, k: int, cin: int, cout: int):
             2 * batch * so * so * k * k * cin * cout)
 
 
+# The k x k kernel's loop edges: Cin 48, Cout 48; M off the 128 x 64 block;
+# 3x3 at Cin 16; a part-filled 128-channel K step (Cin 1040).
+KXK_LOOP_EDGES = [(2, (1, 9, 13, 48), 48), (2, (2, 37, 45, 64), 64), (3, (1, 7, 50, 16), 16),
+                  (3, (1, 9, 12, 1040), 1024)]
+
+
 @torch.inference_mode()
 def phase15_kxk_vs_plain(cfg) -> float:
-    """The fused k x k kernel against its plain version, bit for bit, at the
-    path's packed shapes (batch 2), a 3x3 shape through conv_rows3_col,
-    ragged, odd-Cin and misaligned cases; then against the library route at
-    the full 16-tile packed shapes."""
-    from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused_plain,
-                                             conv_rows3_col)
+    """The fused k x k kernel as routed and through the forced simple route
+    against its plain version, bit for bit, at the path's packed shapes
+    (batch 2, the sm90 loop), a 3x3 shape through conv_rows3_col, the loop's
+    edge shapes, ragged, odd-Cin and misaligned cases (the simple route);
+    then against the library route at the full 16-tile packed shapes."""
+    from tpu_unet_torch.ops.conv_kxk import (_conv_kxk_route_forward, conv2x2_fused,
+                                             conv_kxk_fused, conv_kxk_fused_plain,
+                                             conv_kxk_route, conv_rows3_col)
     from tpu_unet_torch.ops.conv_tiles import conv3x3_int8_xla
 
     gen = torch.Generator(device=DEVICE).manual_seed(15)
-    cases = [(name, 2, (2, s, s, cin), cout, 0) for name, s, cin, cout in kxk_shapes(cfg)]
-    cases += [("3x3 (probe section 1, rows cut)", 3, (2, 34, 762, 128), 128, 0),
-              ("ragged, Cin 24", 2, (1, 9, 13, 24), 40, 0),
-              ("misaligned", 2, (2, 10, 12, 32), 16, 3),
-              ("3x3, K 27", 3, (1, 7, 9, 3), 5, 0)]
-    for label, k, shape, cout, offset in cases:
+    cases = [(name, 2, (2, s, s, cin), cout, 0, "sm90") for name, s, cin, cout in kxk_shapes(cfg)]
+    cases += [("3x3 (probe section 1, rows cut)", 3, (2, 34, 762, 128), 128, 0, "sm90")]
+    cases += [("loop edge", k, shape, cout, 0, "sm90") for k, shape, cout in KXK_LOOP_EDGES]
+    cases += [("ragged, Cin 24", 2, (1, 9, 13, 24), 40, 0, "simple"),
+              ("misaligned", 2, (2, 10, 12, 32), 16, 3, "simple"),
+              ("3x3, K 27", 3, (1, 7, 9, 3), 5, 0, "simple")]
+    routes = {"sm90": 0, "simple": 0}
+    for label, k, shape, cout, offset, want in cases:
         x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, gen, offset, k)
         fn = conv2x2_fused if k == 2 else conv_rows3_col
+        sm90 = conv_kxk_fused.sm90_launches
         got = fn(x, w, alpha, beta, cout_tile=min(cout, 256) if k == 2 else None)
+        took = "sm90" if conv_kxk_fused.sm90_launches > sm90 else "simple"
+        routes[took] += 1
+        if not took == want == conv_kxk_route(x, w):
+            raise AssertionError(f"the k x k kernel at {label} took {took}, want {want}")
+        simple = _conv_kxk_route_forward(x, w, alpha, beta, "simple")
         ref = conv_kxk_fused_plain(x, w, alpha, beta)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         share = (ref > 0).float().mean().item()
         log(f"phase 15: k x k {label:32s} {k}x{k} x{list(shape)} -> {cout} via "
-            f"{fn.__name__}: max|err| {err} vs plain; nonzero share {share:.3f}")
-        if not (got.dtype == torch.int8 and torch.equal(got, ref)):
+            f"{fn.__name__} ({took}): max|err| {err} vs plain; simple route equal "
+            f"{torch.equal(simple, ref)}; nonzero share {share:.3f}")
+        if not (got.dtype == torch.int8 and torch.equal(got, ref) and torch.equal(simple, ref)):
             raise AssertionError(f"the k x k kernel differs from its plain version at {label}")
         if not 0.0 < share < 1.0:
             raise AssertionError(f"degenerate k x k test outputs at {label}")
-        del x, w, got, ref
+        del x, w, got, simple, ref
     for name, s, cin, cout in kxk_shapes(cfg):
         x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen, k=2)
         got = conv_rows3_col(x, w, alpha, beta)         # as int8-phase serving calls it
@@ -1593,8 +1705,9 @@ def phase15_kxk_vs_plain(cfg) -> float:
         if not torch.equal(got, lib):
             raise AssertionError(f"the k x k kernel differs from the library route at {name}")
         del x, w, got, lib
-    log("phase 15: ok, the k x k kernel bit-exact (tolerance 0) against its plain version "
-        "and the library route")
+    log(f"phase 15: ok, the k x k kernel bit-exact (tolerance 0) on both routes against its "
+        f"plain version and the library route ({routes['sm90']} launches on the sm90 loop, "
+        f"{routes['simple']} on the simple kernel)")
     return 0.0
 
 
@@ -1611,6 +1724,7 @@ def phase16_serve_int8_phase(cfg, model, data, qp):
     from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
 
     fns = {"conv_kxk_fused": conv_kxk_fused, "conv3x3_fused": conv3x3_fused}
+    launch_keys = list(fns) + [f"{name}_sm90" for name in fns]
     xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
     xla.load_state_dict(model.state_dict())
     engine = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT)
@@ -1624,17 +1738,19 @@ def phase16_serve_int8_phase(cfg, model, data, qp):
                    ("'pallas', served from the .npz", model),
                    ("'xla', served from the .npz", xla)):
         for fn in fns.values():
-            fn.launches = 0
+            fn.launches = fn.sm90_launches = 0
         t0 = time.perf_counter()
         results.append(evaluate(m, data, tile_out=TILE_OUT, verbose=False, quant="int8-phase",
                                 quant_path=qpath))
         torch.cuda.synchronize()
-        launches[run] = {name: fn.launches for name, fn in fns.items()}
+        launches[run] = {**{name: fn.launches for name, fn in fns.items()},
+                         **{f"{name}_sm90": fn.sm90_launches for name, fn in fns.items()}}
         log(f"phase 16: evaluate(quant='int8-phase') {run} in {time.perf_counter() - t0:.2f} "
             f"s: launches {launches[run]} for {n_tiles} tiles in {n_chunks} chunk(s); "
             f"{json.dumps(results[-1])}")
-        want = ({name: n * n_chunks for name, n in PHASE_LAUNCHES.items()} if m is model
-                else dict.fromkeys(fns, 0))
+        # every launch on the sm90 loop
+        want = ({name: PHASE_LAUNCHES[name.removesuffix("_sm90")] * n_chunks
+                 for name in launch_keys} if m is model else dict.fromkeys(launch_keys, 0))
         if launches[run] != want:
             failed.append(f"{run}: launches {launches[run]}, want {want}")
     first, second, third = ({k: v for k, v in r.items() if k != "seconds"} for r in results)
@@ -1692,8 +1808,10 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
     from tpu_unet_torch.infer import TileInference
     from tpu_unet_torch.infer.quant import QuantInference
     from tpu_unet_torch.models import UNet
-    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused, conv_kxk_fused_plain, conv_rows3_col
-    from tpu_unet_torch.ops.conv_tiles import conv3x3_int8_xla
+    from tpu_unet_torch.ops.conv_kxk import (_conv_kxk_route_forward, conv_kxk_fused,
+                                             conv_kxk_fused_plain, conv_kxk_route,
+                                             conv_rows3_col)
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_int8_xla, sm90_block
     from tpu_unet_torch.probes import deep_shootout
     from tpu_unet_torch.train import make_optimizer
 
@@ -1727,31 +1845,39 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
         + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
     for name, ms in top:
         log(f"phase 17:   {ms / n:9.3f} ms/call  {name[:110]}")
+    tiles_s["int8-phase 'pallas' profiled_ms_per_call"] = {
+        "device_busy": busy / n, **{g: ms / n for g, ms in groups.items()}}
+    _require_groups(groups, "K3 conv3x3_fused", "k x k conv_kxk_fused")
     del engines
 
     gen = torch.Generator(device=DEVICE).manual_seed(17)
-    kxk = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    kxk = dict.fromkeys(TURN_KEYS + ("plain",), 0.0)
+    per_shape = {}
     nbytes = ops = 0
     with torch.inference_mode():
         for name, s, cin, cout in kxk_shapes(cfg):
             x, w, alpha, beta = _k3_inputs((BATCH_TILES, s, s, cin), cout, torch.int8, gen, k=2)
-            t = {"kernel": time_ms(lambda: conv_rows3_col(x, w, alpha, beta), DEVICE, 10),
-                 "plain": time_ms(lambda: conv_kxk_fused_plain(x, w, alpha, beta), DEVICE, 2),
-                 "library": time_ms(lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8"), DEVICE, 5)}
+            t = _in_turns({
+                "kernel": lambda: conv_rows3_col(x, w, alpha, beta),   # as serving calls it
+                "simple": lambda: _conv_kxk_route_forward(x, w, alpha, beta, "simple"),
+                "library": lambda: conv3x3_int8_xla(x, w, alpha, beta, "int8")})
+            t["plain"] = time_ms(lambda: conv_kxk_fused_plain(x, w, alpha, beta), DEVICE, 2)
+            t["route"], t["block"] = conv_kxk_route(x, w), list(sm90_block(cout))
             b, o = kxk_cost(BATCH_TILES, s, 2, cin, cout)
-            b_ms, by = bound(b, o, "int8")
-            log(f"phase 17: k x k {name} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: kernel "
-                f"{t['kernel']:.3f} ms ({o / t['kernel'] / 1e9:.1f} TOP/s), library "
-                f"{t['library']:.3f} ms, plain {t['plain']:.3f} ms, bound {b_ms:.3f} ms ({by})")
+            t["bound"], t["bound_by"] = bound(b, o, "int8")
+            log(f"phase 17: k x k {name} x[{BATCH_TILES},{s},{s},{cin}]->{cout}: "
+                + _turns_line(t, o))
             for key in kxk:
                 kxk[key] += t[key]
+            per_shape[name] = t
             nbytes, ops = nbytes + b, ops + o
             del x, w, alpha, beta
     kxk["bound"], kxk["bound_by"] = bound(nbytes, ops, "int8")
+    kxk["per_shape"] = per_shape
     log(f"phase 17: the two packed convs of one {BATCH_TILES}-tile chunk ({ops / 1e12:.3f} T "
         f"int8 ops): kernel {kxk['kernel']:.3f} ms ({ops / kxk['kernel'] / 1e9:.1f} TOP/s), "
-        f"library {kxk['library']:.3f} ms, plain {kxk['plain']:.3f} ms, bound "
-        f"{kxk['bound']:.3f} ms ({kxk['bound_by']})")
+        f"the simple kernel {kxk['simple']:.3f} ms, library {kxk['library']:.3f} ms, plain "
+        f"{kxk['plain']:.3f} ms, bound {kxk['bound']:.3f} ms ({kxk['bound_by']})")
 
     parts_in = _train_parts()
     models = {}
@@ -2145,6 +2271,12 @@ def stage_kernel_lines(errs, times, launches):
     } for name, key, forms, replaces, also in STAGE_KERNELS]
 
 
+def _by_route(launches, name):
+    """{route: launches} of kernel `name` from a {name, name_sm90} count."""
+    return {"sm90": launches[f"{name}_sm90"],
+            "simple": launches[name] - launches[f"{name}_sm90"]}
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -2227,7 +2359,7 @@ def main() -> None:
         "route": "cuda",
         "source": "tpu_unet_torch/csrc/conv3x3_fused.cu",
         "replaces": "tpu_unet/ops/conv_tiles.py:155",
-        "launches": int8_launches,
+        "launches": sum(int8_launches.values()),
         "max_abs_err": k3_err,
         "ms": k3_total["kernel"],
         "plain_ms": k3_total["plain"],
@@ -2235,9 +2367,19 @@ def main() -> None:
         "bound_by": k3_total["bound_by"],
         "library_ms": k3_total["library"],
         "bf16_max_abs_err": k3_bf16_err,
-        "launches_by_path": {"serve_int8": int8_launches,
+        "launches_by_path": {"serve_int8": sum(int8_launches.values()),
+                             "serve_int8_phase": phase_launches["conv3x3_fused"],
                              **{f"serve_int8_research_{k}": v["conv3x3_fused"]
                                 for k, v in research_launches.items()}},
+        "launches_by_route": {
+            "serve_int8": int8_launches,
+            "serve_int8_phase": _by_route(phase_launches, "conv3x3_fused"),
+            **{f"serve_int8_research_{k}": _by_route(v, "conv3x3_fused")
+               for k, v in research_launches.items()}},
+        "ms_by_route": {"sm90": k3_total["kernel"], "simple": k3_total["simple"]},
+        "per_shape": k3_total["per_shape"],
+        "sources": ["tpu_unet_torch/csrc/conv3x3_fused.cu", "tpu_unet_torch/csrc/conv_fused.cuh",
+                    "tpu_unet_torch/csrc/conv3x3_sm90.cuh"],
         "evaluate_tiles_per_s": int8_tiles_s,
     }] + research_kernel_lines(research_errs, research_launches, research_ms,
                                research_tiles_s) + [{
@@ -2255,6 +2397,11 @@ def main() -> None:
         "library_ms": kxk_ms["library"],
         "launches_by_path": {"serve_int8_phase": phase_launches["conv_kxk_fused"],
                              "probe": probe_launches},
+        "launches_by_route": {"serve_int8_phase": _by_route(phase_launches, "conv_kxk_fused")},
+        "ms_by_route": {"sm90": kxk_ms["kernel"], "simple": kxk_ms["simple"]},
+        "per_shape": kxk_ms["per_shape"],
+        "sources": ["tpu_unet_torch/csrc/conv_kxk_fused.cu", "tpu_unet_torch/csrc/conv_fused.cuh",
+                    "tpu_unet_torch/csrc/conv3x3_sm90.cuh"],
         "evaluate_tiles_per_s": phase_tiles_s,
         "class_map_agreement_vs_int8": phase_agree,
         "probe": [{k: r[k] for k in ("section", "route", "ms", "tops")} for r in probe],

@@ -108,6 +108,7 @@ def test_build_names_library_by_source_hash():
                                                    "conv3x3_bias_relu.cu",
                                                    "conv3x3_fused.cu",
                                                    "conv3x3_sm90.cuh",
+                                                   "conv_fused.cuh",
                                                    "conv_kxk_fused.cu",
                                                    "edt_column_pass.cu",
                                                    "enc0_chain.cu",

@@ -19,9 +19,11 @@ import torch
 from tpu_unet_torch.models import ModelConfig, UNet
 from tpu_unet_torch.ops.conv_pallas import (_conv3x3_route_forward, conv3x3_bias_relu,
                                             conv3x3_bias_relu_plain, sm90_plan)
-from tpu_unet_torch.ops.conv_kxk import (conv2x2_fused, conv_kxk_fused,
-                                         conv_kxk_fused_plain, conv_rows3_col)
-from tpu_unet_torch.ops.conv_tiles import (conv3x3_fused, conv3x3_fused_plain,
+from tpu_unet_torch.ops.conv_kxk import (_conv_kxk_route_forward, conv2x2_fused,
+                                         conv_kxk_fused, conv_kxk_fused_plain,
+                                         conv_kxk_route, conv_rows3_col)
+from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3_fused,
+                                           conv3x3_fused_plain, conv3x3_fused_route,
                                            conv3x3_int8_xla)
 from tpu_unet_torch.ops import enc0_stages as st
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
@@ -362,6 +364,59 @@ def test_fused_kernel_refuses_what_it_does_not_take(cuda):
     assert conv3x3_fused.launches == before
 
 
+# The int8 wgmma loop (route "sm90") off the model's shapes, against the
+# plain version and the one-stage kernel, bit for bit: M not a multiple of
+# the block, Cout 16/48/64/200/1024, Cin 16/48/1040 (a part-filled 128-channel
+# K step), both blocks.
+K3_LOOP_EDGES = [
+    ((2, 37, 45, 128), 64),         # M = 3010; the 128 x 64 block
+    ((1, 10, 30, 16), 16),          # Cin 16, Cout 16
+    ((2, 9, 21, 48), 48),           # Cin 48, Cout 48
+    ((3, 13, 29, 128), 200),        # Cout 200: bf16 out only (int8 out: simple)
+    ((1, 10, 12, 1040), 1024),      # Cin 1040: 9 K steps per tap, the last part-filled
+    ((2, 8, 20, 256), 1024),        # 8 block columns of 128
+]
+
+
+@pytest.mark.parametrize("shape,cout", K3_LOOP_EDGES)
+@pytest.mark.parametrize("out_kind", ["int8", "bf16"])
+def test_k3_loop_is_bit_exact_at_edge_shapes(cuda, shape, cout, out_kind):
+    """K3 as routed (the loop where it takes the shape) and the forced
+    simple route against the plain version, tolerance 0; the launch's
+    route is the one `conv3x3_fused_route` names."""
+    x, w, alpha, beta = _k3_inputs(shape, cout, torch.int8, cuda, seed=cout)
+    route = conv3x3_fused_route(x, w, out_kind)
+    assert route == ("simple" if out_kind == "int8" and cout % 16 else "sm90")
+    ref = conv3x3_fused_plain(x, w, alpha, beta, out_kind)
+    before = (conv3x3_fused.launches, conv3x3_fused.sm90_launches)
+    got = conv3x3_fused(x, w, alpha, beta, out_kind=out_kind)
+    assert (conv3x3_fused.launches, conv3x3_fused.sm90_launches) == \
+        (before[0] + 1, before[1] + (route == "sm90"))
+    simple = _conv3x3_fused_route_forward(x, w, alpha, beta, "simple", out_kind)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and torch.equal(got, ref) and torch.equal(simple, ref)
+    assert 0 < (ref > 0).float().mean() < 1
+
+
+@pytest.mark.parametrize("label,shape,cout,dtype,offset", [
+    ("bf16 x", (1, 9, 13, 16), 16, torch.bfloat16, 0),
+    ("Cin 24", (1, 9, 13, 24), 16, torch.int8, 0),
+    ("Cout 40, int8 out", (1, 9, 13, 16), 40, torch.int8, 0),
+    ("misaligned x", (1, 9, 13, 16), 16, torch.int8, 4),
+])
+def test_k3_routes_what_the_loop_does_not_take_to_the_simple_kernel(
+        cuda, label, shape, cout, dtype, offset):
+    x, w, alpha, beta = _k3_inputs(shape, cout, dtype, cuda, offset=offset)
+    assert conv3x3_fused_route(x, w) == "simple"
+    before = conv3x3_fused.sm90_launches
+    got = conv3x3_fused(x, w, alpha, beta)
+    assert conv3x3_fused.sm90_launches == before
+    with pytest.raises(ValueError, match="sm90 route does not take"):
+        _conv3x3_fused_route_forward(x, w, alpha, beta, "sm90")
+    if dtype == torch.int8:
+        assert torch.equal(got, conv3x3_fused_plain(x, w, alpha, beta))
+
+
 def test_quant_inference_kernel_matches_library_route(cuda):
     """A narrow int8 engine on the card: every stage under impl='pallas' (K3,
     14 launches per forward) equals impl='xla' (the library route)."""
@@ -375,9 +430,12 @@ def test_quant_inference_kernel_matches_library_route(cuda):
     scales = add_concat_scales(cfg, calibrate(model, x))
     qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16))
     engines = {impl: QuantInference(qp, impl=impl, device=cuda) for impl in ("pallas", "xla")}
-    before = conv3x3_fused.launches
+    before = (conv3x3_fused.launches, conv3x3_fused.sm90_launches)
     logits = engines["pallas"].apply(x)
-    assert conv3x3_fused.launches == before + 14
+    # at base width 8 dec0_conv1 has Cout 8, which the int8 loop does not
+    # take (16 per store): 13 of the 14 on the loop
+    assert (conv3x3_fused.launches, conv3x3_fused.sm90_launches) == \
+        (before[0] + 14, before[1] + 13)
     assert torch.equal(logits, engines["xla"].apply(x)) and torch.isfinite(logits).all()
     for stage in ("enc1_conv2", "pool2", "bottleneck_conv2", "up1", "dec1_conv1",
                   "dec0_conv1"):
@@ -507,16 +565,18 @@ def test_research_kernels_refuse_what_they_do_not_take(cuda):
             interleave_pairs.launches) == counts
 
 
-@pytest.mark.parametrize("flags,launches", [
+@pytest.mark.parametrize("flags,launches,k3_sm90", [
     ({"fused_enc0": True, "fused_concat": True},
-     {"enc0_chain": 1, "concat_quantize": 4}),
+     {"enc0_chain": 1, "concat_quantize": 4}, 13),
     ({"pair_level0": True},
-     {"pair_batch_channels": 1, "unpair_batch_channels": 1, "interleave_pairs": 1}),
+     {"pair_batch_channels": 1, "unpair_batch_channels": 1, "interleave_pairs": 1}, 14),
 ])
-def test_research_forward_kernel_matches_library_route(cuda, flags, launches):
+def test_research_forward_kernel_matches_library_route(cuda, flags, launches, k3_sm90):
     """A narrow research int8 engine on the card: impl='pallas' (K3 and the
     research kernels) equals impl='xla' (the int8 library route and the same
-    research kernels) bit for bit, with each kernel's launches per forward."""
+    research kernels) bit for bit, with each kernel's launches per forward:
+    K3 on the int8 loop but for dec0_conv1's Cout 8 at this width, which the
+    pair formulation doubles to 16."""
     from tpu_unet_torch.infer.quant import (add_concat_scales, calibrate,
                                             default_quant_names, prepare_quant_params)
     from tpu_unet_torch.infer.quant_research import ResearchQuantInference
@@ -530,9 +590,10 @@ def test_research_forward_kernel_matches_library_route(cuda, flags, launches):
     fns = {name: getattr(fused_level0, name, None) or getattr(interleave, name)
            for name in launches}
     before = {name: fn.launches for name, fn in fns.items()}
-    k3 = conv3x3_fused.launches
+    k3 = (conv3x3_fused.launches, conv3x3_fused.sm90_launches)
     logits = ResearchQuantInference(qp, impl="pallas", device=cuda, **flags).apply(x)
-    assert conv3x3_fused.launches == k3 + 14
+    assert (conv3x3_fused.launches, conv3x3_fused.sm90_launches) == \
+        (k3[0] + 14, k3[1] + k3_sm90)
     assert {name: fn.launches - before[name] for name, fn in fns.items()} == launches
     ref = ResearchQuantInference(qp, impl="xla", device=cuda, **flags).apply(x)
     assert logits.shape == (2, 4, 4, 2) and torch.isfinite(logits).all()
@@ -588,6 +649,44 @@ def test_kxk_kernel_is_bit_exact(cuda, k, shape, cout, offset):
     assert 0 < (ref > 0).float().mean() < 1 and int(ref.max()) <= 127
 
 
+@pytest.mark.parametrize("k,shape,cout", [
+    (2, (2, 21, 19, 256), 256),      # the packed path's channels, odd extents
+    (2, (1, 9, 13, 48), 48),         # Cin 48, Cout 48
+    (2, (2, 37, 45, 64), 64),        # M = 3168 on the 128 x 64 block
+    (3, (1, 7, 50, 16), 16),         # the 3x3 case at Cin 16, Cout 16
+    (3, (1, 9, 12, 1040), 1024),     # Cin 1040: a part-filled K step
+])
+def test_kxk_loop_is_bit_exact_at_edge_shapes(cuda, k, shape, cout):
+    """The k x k kernel on the int8 wgmma loop and on the forced simple
+    route against the plain version, tolerance 0, each launch on the route
+    `conv_kxk_route` names."""
+    x, w, alpha, beta = _kxk_inputs(shape, k, cout, cuda, seed=cout)
+    assert conv_kxk_route(x, w) == "sm90"
+    ref = conv_kxk_fused_plain(x, w, alpha, beta)
+    before = (conv_kxk_fused.launches, conv_kxk_fused.sm90_launches)
+    got = conv_kxk_fused(x, w, alpha, beta)
+    assert (conv_kxk_fused.launches, conv_kxk_fused.sm90_launches) == \
+        (before[0] + 1, before[1] + 1)
+    simple = _conv_kxk_route_forward(x, w, alpha, beta, "simple")
+    assert conv_kxk_fused.sm90_launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(simple, ref)
+    assert 0 < (ref > 0).float().mean() < 1
+
+
+def test_kxk_routes_what_the_loop_does_not_take_to_the_simple_kernel(cuda):
+    for shape, cout, offset in (((1, 8, 11, 24), 16, 0), ((1, 8, 11, 16), 40, 0),
+                                ((2, 9, 12, 32), 16, 5)):
+        x, w, alpha, beta = _kxk_inputs(shape, 2, cout, cuda, offset)
+        assert conv_kxk_route(x, w) == "simple"
+        before = conv_kxk_fused.sm90_launches
+        got = conv_kxk_fused(x, w, alpha, beta)
+        assert conv_kxk_fused.sm90_launches == before
+        assert torch.equal(got, conv_kxk_fused_plain(x, w, alpha, beta))
+        with pytest.raises(ValueError, match="sm90 route does not take"):
+            _conv_kxk_route_forward(x, w, alpha, beta, "sm90")
+
+
 def test_kxk_kernel_refuses_what_it_does_not_take(cuda):
     x, w, alpha, beta = _kxk_inputs((1, 6, 7, 16), 2, 8, cuda)
     before = conv_kxk_fused.launches
@@ -620,9 +719,11 @@ def test_phase_engine_kernel_matches_library_route(cuda):
     qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16))
     engines = {impl: QuantInference(qp, impl=impl, phase_level0="int8", device=cuda)
                for impl in ("pallas", "xla")}
-    kxk, k3 = conv_kxk_fused.launches, conv3x3_fused.launches
+    counts = lambda: (conv_kxk_fused.launches, conv3x3_fused.launches,   # noqa: E731
+                      conv_kxk_fused.sm90_launches, conv3x3_fused.sm90_launches)
+    before = counts()
     logits = engines["pallas"].apply(x)
-    assert (conv_kxk_fused.launches - kxk, conv3x3_fused.launches - k3) == (2, 13)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 13, 2, 13)
     assert logits.shape == (2, 4, 20, 2) and torch.isfinite(logits).all()
     assert torch.equal(logits, engines["xla"].apply(x))
     for stage in ("enc0_conv1", "enc0_conv2", "pool0", "up0", "dec0_conv1", "dec0_conv2"):
@@ -630,21 +731,30 @@ def test_phase_engine_kernel_matches_library_route(cuda):
         assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage
 
 
+# Gradients of the phase-packed and the plain model, per tensor in norm:
+# one pre-activation within rounding of 0 can take another sign under the
+# two summation orders, and the flipped ReLU mask moves a whole gradient
+# term (tests/test_torch_phase_train.py shows one such flip on the CPU at
+# this input). chip_smoke.py's phase 7 holds a train step to the same bar.
+PHASE_GRAD_TOL = 1e-2
+
+
 def test_phase_model_matches_plain_on_the_card(cuda):
     """The phase-packed trainable model against the plain one on the same
-    weights, f32 with TF32 off: logits and gradients at rtol 2e-4."""
+    weights, f32 with TF32 off: logits at rtol 2e-4, each gradient within
+    PHASE_GRAD_TOL of its norm."""
     cfg = ModelConfig(base_width=8)
     model = UNet(cfg, generator=torch.Generator().manual_seed(1)).to(cuda)
     phase = UNet(dataclasses.replace(cfg, phase_level0=True)).to(cuda)
     phase.load_state_dict(model.state_dict())
-    x = torch.rand((2, 204, 204, 1), device=cuda)
+    x = torch.rand((2, 204, 204, 1), generator=torch.Generator().manual_seed(2)).to(cuda)
     ys = [m(x) for m in (model, phase)]
     torch.testing.assert_close(ys[1], ys[0], rtol=2e-4, atol=2e-4)
     for y in ys:
         y.square().mean().backward()
     for (name, p), q in zip(model.named_parameters(), phase.parameters()):
-        scale = p.grad.abs().max().item()
-        torch.testing.assert_close(q.grad, p.grad, rtol=2e-4, atol=2e-4 * scale, msg=name)
+        err = ((q.grad - p.grad).norm() / p.grad.norm()).item()
+        assert err <= PHASE_GRAD_TOL, (name, err)
 
 
 @pytest.mark.parametrize("c,offset", [(128, 0), (2, 0), (8, 0), (1, 0), (3, 0), (5, 0),

@@ -6,6 +6,7 @@ in other orders), one step's gradients equal JAX's at rtol 5e-4, the
 parameters stay the canonical ones, and Trainer.fit trains it."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ from tpu_unet_torch.config import AugmentConfig, DatasetConfig, LossConfig, Mode
 from tpu_unet_torch.convert import state_dict_from_jax_params
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.models import UNet
+from tpu_unet_torch.models import unet as unet_module
+from tpu_unet_torch.ops.phase import depth_to_space
 from tpu_unet_torch.train import Trainer
 from tests.test_torch_model import jax_config, numpy_params
 
@@ -131,3 +134,61 @@ def test_phase_rejects_pallas_and_odd_sizes():
     model = UNet(ModelConfig(base_width=2, phase_level0=True))
     with pytest.raises(ValueError, match="even"):
         model(torch.zeros(1, 189, 188, 1))
+
+
+def _relu_inputs(model, x, monkeypatch):
+    """The model's logits and the input of each of its ReLUs, in call
+    order, NHWC, the phase-packed level 0 unpacked."""
+    seen = []
+
+    def relu(t):
+        seen.append(t.detach().clone())
+        return torch.nn.functional.relu(t)
+
+    monkeypatch.setattr(unet_module, "F", types.SimpleNamespace(
+        **{**vars(torch.nn.functional), "relu": relu}))
+    y = model(x)
+    monkeypatch.undo()
+    pre = [t.permute(0, 2, 3, 1) for t in seen]
+    return y, pre
+
+
+def test_one_relu_mask_flip_moves_the_packed_gradients(monkeypatch):
+    """Why the card test holds the phase model's gradients in norm: at this
+    input (the one tests/test_torch_cuda.py draws) the plain and packed
+    models agree to ~1e-6 in every layer, yet one pre-activation of
+    dec1_conv2 lies within rounding of 0 and takes opposite signs under the
+    two summation orders. That one ReLU mask moves whole gradient terms:
+    the element-wise bar (rtol 2e-4, atol 2e-4 of the scale) fails, while
+    each gradient stays within 1e-2 of its norm."""
+    cfg = ModelConfig(base_width=8)
+    model = UNet(cfg, generator=torch.Generator().manual_seed(1))
+    phase = UNet(dataclasses.replace(cfg, phase_level0=True))
+    phase.load_state_dict(model.state_dict())
+    x = torch.rand((2, IN, IN, 1), generator=torch.Generator().manual_seed(2))
+    (y, pre), (yq, preq) = (_relu_inputs(m, x, monkeypatch) for m in (model, phase))
+    torch.testing.assert_close(yq, y, rtol=2e-4, atol=2e-4)
+    assert len(pre) == len(preq) == 18
+    flips = []
+    for i, (a, b) in enumerate(zip(pre, preq)):
+        b = b if b.shape == a.shape else depth_to_space(b)
+        assert b.shape == a.shape
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5 * a.abs().max().item())
+        for idx in ((a > 0) != (b > 0)).nonzero().tolist():
+            flips.append((i, tuple(idx)))
+    assert len(flips) == 1
+    layer, idx = flips[0]
+    assert layer == 15                          # dec1_conv2, the 16th conv
+    a, b = pre[layer][idx].item(), preq[layer][idx].item()
+    assert a * b < 0 or (a == 0) != (b == 0)
+    assert max(abs(a), abs(b)) <= 1e-6 * pre[layer].abs().max().item()
+
+    for out in (y, yq):
+        out.square().mean().backward()
+    elementwise, norm = [], []
+    for (name, p), q in zip(model.named_parameters(), phase.parameters()):
+        scale = p.grad.abs().max().item()
+        elementwise.append(torch.allclose(q.grad, p.grad, rtol=2e-4, atol=2e-4 * scale))
+        norm.append(((q.grad - p.grad).norm() / p.grad.norm()).item())
+    assert not all(elementwise)
+    assert max(norm) <= 1e-2, max(norm)

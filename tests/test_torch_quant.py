@@ -157,6 +157,89 @@ def test_fused_conv_checks_its_tiling_like_jax():
         tct.conv3x3_fused(x, w[:, :, :8], alpha, beta)
 
 
+# ------------------------------------------------- K3's routes on the card
+
+# (layer, input H = W, Cin, Cout) of the 14 int8 convs of a full-width
+# 572^2 tile, and the block of the int8 wgmma loop each gets.
+INT8_MAIN_PATH = [
+    ("enc1_conv2", 282, 128, 128), ("enc2_conv1", 140, 128, 256),
+    ("enc2_conv2", 138, 256, 256), ("enc3_conv1", 68, 256, 512),
+    ("enc3_conv2", 66, 512, 512), ("bottleneck_conv1", 32, 512, 1024),
+    ("bottleneck_conv2", 30, 1024, 1024), ("dec3_conv1", 56, 1024, 512),
+    ("dec3_conv2", 54, 512, 512), ("dec2_conv1", 104, 512, 256),
+    ("dec2_conv2", 102, 256, 256), ("dec1_conv1", 200, 256, 128),
+    ("dec1_conv2", 198, 128, 128), ("dec0_conv1", 392, 128, 64),
+]
+
+
+def test_int8_main_path_is_the_14_quantized_convs():
+    names = {name for name, *_ in INT8_MAIN_PATH}
+    assert names == tq.default_quant_names(ModelConfig(base_width=64))
+
+
+@pytest.mark.parametrize("name,s,cin,cout", INT8_MAIN_PATH)
+def test_int8_main_path_routes_to_the_wgmma_loop(name, s, cin, cout):
+    """Every int8 conv of the serving chunk takes route "sm90", in a 256 x
+    128 block, or 128 x 64 at Cout 64 (dec0_conv1). The route reads the
+    shape, not the data or the device, so a 4-row slice stands for it."""
+    x = torch.zeros((1, 4, s, cin), dtype=torch.int8)
+    w = torch.zeros((3, 3, cin, cout), dtype=torch.int8)
+    assert tct.conv3x3_fused_route(x, w) == "sm90"
+    assert tct.sm90_block(cout) == ((128, 64) if cout == 64 else (256, 128))
+    assert tct.sm90_block(cout) in tct.SM90_BLOCKS
+
+
+def _misaligned_int8(shape):
+    buf = torch.zeros(int(np.prod(shape)) + 16, dtype=torch.int8)
+    off = (-buf.data_ptr()) % 16 + 1
+    return buf[off:off + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("label,x,cout,out_kind,route", [
+    ("bf16 x", torch.zeros((1, 5, 5, 16), dtype=torch.bfloat16), 16, "auto", "simple"),
+    ("Cin 3", torch.zeros((1, 5, 5, 3), dtype=torch.int8), 16, "auto", "simple"),
+    ("Cin 24", torch.zeros((1, 5, 5, 24), dtype=torch.int8), 16, "auto", "simple"),
+    ("Cout 5", torch.zeros((1, 5, 5, 16), dtype=torch.int8), 5, "auto", "simple"),
+    ("Cout 40, int8 out", torch.zeros((1, 5, 5, 16), dtype=torch.int8), 40, "int8", "simple"),
+    ("Cout 40, bf16 out", torch.zeros((1, 5, 5, 16), dtype=torch.int8), 40, "bf16", "sm90"),
+    ("Cin 16, Cout 16", torch.zeros((1, 5, 5, 16), dtype=torch.int8), 16, "auto", "sm90"),
+    ("misaligned x", _misaligned_int8((1, 5, 5, 16)), 16, "auto", "simple"),
+])
+def test_k3_route_by_dtype_channels_and_alignment(label, x, cout, out_kind, route):
+    w = torch.zeros((3, 3, x.shape[3], cout), dtype=x.dtype)
+    assert tct.conv3x3_fused_route(x, w, out_kind) == route, label
+
+
+@pytest.mark.parametrize("k,cin,cout", [(3, 16, 24), (2, 32, 8), (3, 1, 5)])
+def test_k_major_weights_read_the_hwio_kernel(k, cin, cout):
+    """Row n of the K-major matrix is output channel n's taps, tap-major with
+    ascending channels: element (dy*k + dx)*Cin + c is w[dy, dx, c, n]."""
+    w = torch.from_numpy(np.random.RandomState(k + cin).randint(
+        -127, 128, (k, k, cin, cout)).astype(np.int8))
+    wk = tct.k_major_weights(w)
+    assert wk.shape == (cout, k * k * cin) and wk.is_contiguous()
+    for dy, dx, c, n in [(0, 0, 0, 0), (k - 1, 0, cin - 1, cout - 1), (0, k - 1, cin // 2, 1),
+                         (k - 1, k - 1, 0, cout // 2)]:
+        assert wk[n, (dy * k + dx) * cin + c] == w[dy, dx, c, n]
+    assert torch.equal(wk.view(cout, k, k, cin).permute(1, 2, 3, 0), w)
+
+
+def test_k3_forced_route_refuses_what_its_route_does_not_take():
+    x, w, alpha, beta = [_t(a) for a in _conv_args(np.random.RandomState(6),
+                                                   (1, 6, 6, 24), 16)]
+    with pytest.raises(ValueError, match="sm90 route does not take"):
+        tct._conv3x3_fused_route_forward(x, w, alpha, beta, "sm90")         # Cin 24
+    with pytest.raises(ValueError, match="sm90 route does not take"):
+        tct._conv3x3_fused_route_forward(x[..., :16].contiguous().to(torch.bfloat16),
+                                         w[:, :, :16].contiguous().to(torch.bfloat16),
+                                         alpha, beta, "sm90")                 # bf16 x
+    with pytest.raises(ValueError, match="no route"):
+        tct._conv3x3_fused_route_forward(x, w, alpha, beta, "cudnn")
+    with pytest.raises(ValueError, match="cuda"):
+        tct._conv3x3_fused_route_forward(x, w, alpha, beta, "simple")       # a CPU tensor
+    assert tct.conv3x3_fused.launches == tct.conv3x3_fused.sm90_launches == 0
+
+
 # ------------------------------------------------- calibration and weights
 
 

@@ -124,6 +124,68 @@ def test_kxk_wrappers_check_the_tiling_arguments():
         conv_kxk.conv_rows3_col(x, w, alpha[:8], beta)
 
 
+# (layer, packed input H = W, Cin, Cout) of the two packed 2x2 int8 convs
+# of a full-width 572^2 tile: enc0_conv2 (286 -> 285 -> 284) and dec0_conv2
+# (196 -> 195 -> 194).
+PACKED_MAIN_PATH = [("enc0_conv2", 285, 256, 256), ("dec0_conv2", 195, 256, 256)]
+
+
+@pytest.mark.parametrize("name,s,cin,cout", PACKED_MAIN_PATH)
+def test_packed_convs_route_to_the_wgmma_loop(name, s, cin, cout):
+    x = torch.zeros((1, 3, s, cin), dtype=torch.int8)
+    w = torch.zeros((2, 2, cin, cout), dtype=torch.int8)
+    assert conv_kxk.conv_kxk_route(x, w) == "sm90"
+    assert tct.sm90_block(cout) == (256, 128)
+
+
+@pytest.mark.parametrize("label,shape,k,cout,dtype,route", [
+    ("Cin 16, Cout 16, 3x3", (1, 5, 5, 16), 3, 16, torch.int8, "sm90"),
+    ("Cin 3", (1, 5, 5, 3), 3, 16, torch.int8, "simple"),
+    ("Cin 24", (1, 5, 5, 24), 2, 16, torch.int8, "simple"),
+    ("Cout 5", (1, 5, 5, 16), 2, 5, torch.int8, "simple"),
+    ("Cout 40", (1, 5, 5, 16), 2, 40, torch.int8, "simple"),
+    ("bf16 x", (1, 5, 5, 16), 2, 16, torch.bfloat16, "simple"),
+])
+def test_kxk_route_by_dtype_and_channels(label, shape, k, cout, dtype, route):
+    x = torch.zeros(shape, dtype=dtype)
+    w = torch.zeros((k, k, shape[3], cout), dtype=dtype)
+    assert conv_kxk.conv_kxk_route(x, w) == route, label
+
+
+def test_kxk_route_takes_a_misaligned_x_on_the_simple_kernel():
+    buf = torch.zeros(5 * 5 * 16 + 16, dtype=torch.int8)
+    off = (-buf.data_ptr()) % 16 + 3
+    x = buf[off:off + 5 * 5 * 16].view(1, 5, 5, 16)
+    assert x.data_ptr() % 16 == 3
+    assert conv_kxk.conv_kxk_route(x, torch.zeros((2, 2, 16, 16), dtype=torch.int8)) == "simple"
+    assert conv_kxk.conv_kxk_route(x.clone(), torch.zeros((2, 2, 16, 16),
+                                                          dtype=torch.int8)) == "sm90"
+
+
+def test_kxk_forced_route_refuses_what_its_route_does_not_take():
+    x, w, alpha, beta = [_t(a) for a in _kxk_args(1, (1, 6, 6, 24), 2, 16)]
+    with pytest.raises(ValueError, match="sm90 route does not take"):
+        conv_kxk._conv_kxk_route_forward(x, w, alpha, beta, "sm90")          # Cin 24
+    with pytest.raises(ValueError, match="no route"):
+        conv_kxk._conv_kxk_route_forward(x, w, alpha, beta, "library")
+    with pytest.raises(ValueError, match="cuda"):
+        conv_kxk._conv_kxk_route_forward(x, w, alpha, beta, "simple")        # a CPU tensor
+    assert conv_kxk.conv_kxk_fused.launches == conv_kxk.conv_kxk_fused.sm90_launches == 0
+
+
+def test_k3_and_the_kxk_conv_share_one_kernel_source():
+    """K3 and the k x k conv launch the kernels of one header: neither
+    source holds a kernel or inline PTX of its own."""
+    from tpu_unet_torch.ops import _build
+
+    srcs = {os.path.basename(p): open(p).read() for p in _build.sources()}
+    for name in ("conv3x3_fused.cu", "conv_kxk_fused.cu"):
+        assert '#include "conv_fused.cuh"' in srcs[name]
+        assert "__global__" not in srcs[name] and "asm" not in srcs[name]
+    header = srcs["conv_fused.cuh"]
+    assert header.count("__global__") == 2        # the one-stage kernel and the loop
+
+
 # ---------------------------------------------------- the phase engine
 
 

@@ -6,8 +6,9 @@
 //
 // Included by conv3x3_bias_relu.cu (K1's bf16 route: bias + ReLU -> bf16)
 // and enc0_stages.cu (the Mosaic probes' conv2 stage: f32 out, or
-// bf16(ReLU)). Everything here has internal linkage, so each file builds
-// the instances it launches.
+// bf16(ReLU)); conv_fused.cuh builds its int8 loop on this file's ring,
+// copies, swizzle and wgmma helpers. Everything here has internal linkage,
+// so each file builds the instances it launches.
 //
 //   x [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major: each output
 //   channel's row, tap-major with ascending channels), bias [Cout] bf16

@@ -129,6 +129,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             fn.restype = i
+        for name in ("conv3x3_fused_sm90", "conv_kxk_fused_sm90"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+            fn.restype = i
         lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                             i, p]
         lib.edt_column_pass_f32.restype = i

@@ -16,12 +16,17 @@ Quantized serving's phase path (infer/quant.py, ``phase_level0='int8'``,
 ``impl='pallas'``) runs its packed ``enc0_conv2`` and ``dec0_conv2``
 through it.
 
+The kernels are K3's (``csrc/conv_fused.cuh``) at k = 2 or 3, on the same
+two routes, which `conv_kxk_route` picks by shape: ``"sm90"`` (Cin and Cout
+multiples of 16, x 16-byte aligned: the int8 wgmma loop, in the block
+``conv_tiles.sm90_block`` picks) and ``"simple"`` (the one-stage kernel).
+
 Both wrapper names take the TPU kernels' tiling arguments, check them as
 the script uses them (the Cout tile divides Cout, the variant is known, the
-sizes are at least 1) and pass nothing of them on: the Hopper kernel has one
-design. On a CPU tensor they run `conv_kxk_fused_plain`; on a CUDA tensor
-`conv_kxk_fused` launches the kernel or raises, and counts the launch in
-``conv_kxk_fused.launches``.
+sizes are at least 1) and pass nothing of them on. On a CPU tensor they run
+`conv_kxk_fused_plain`; on a CUDA tensor `conv_kxk_fused` launches a kernel
+or raises, and counts the launch in ``conv_kxk_fused.launches`` (the sm90
+route's also in ``conv_kxk_fused.sm90_launches``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from tpu_unet_torch.ops import _build
-from tpu_unet_torch.ops.conv_tiles import _check_kernel_args, _check_shapes, epilogue
+from tpu_unet_torch.ops.conv_tiles import (_check_kernel_args, _check_shapes, check_route,
+                                           epilogue, int8_sm90_takes, k_major_weights,
+                                           launch_fused, sm90_block)
 
 _SIZES = (2, 3)
 _VARIANTS_2X2 = ("im2col4", "rows2")
@@ -51,43 +58,73 @@ def conv_kxk_fused_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     return epilogue(acc, alpha, beta, "int8").contiguous()
 
 
+def conv_kxk_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel route `conv_kxk_fused` takes for x and w on the card:
+    ``"sm90"`` where ``conv_tiles.int8_sm90_takes`` (int8 x, Cin and Cout
+    multiples of 16, x 16-byte aligned), else ``"simple"``; not on the
+    device."""
+    return "sm90" if int8_sm90_takes(x, w.shape[-1], "int8") else "simple"
+
+
+def _kxk_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                 route: str) -> torch.Tensor:
+    """The k x k kernel on checked int8 CUDA tensors through `route`."""
+    bsz, h, wd, _ = x.shape
+    kh, cout = w.shape[0], w.shape[3]
+    y = torch.empty((bsz, h - kh + 1, wd - kh + 1, cout), dtype=torch.int8, device=x.device)
+    wk = k_major_weights(w)
+    lib = _build.load_library()
+    if route == "sm90":
+        launch_fused("conv_kxk_fused", lib.conv_kxk_fused_sm90, x, wk, alpha, beta, y, kh,
+                     *sm90_block(cout))
+        conv_kxk_fused.sm90_launches += 1
+    else:
+        vec = int(x.shape[3] % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, wk)))
+        launch_fused("conv_kxk_fused", lib.conv_kxk_fused_s8, x, wk, alpha, beta, y, kh, vec)
+    conv_kxk_fused.launches += 1
+    return y
+
+
+def _check_int8(x: torch.Tensor) -> None:
+    if x.dtype != torch.int8:
+        raise TypeError(f"the kernel takes int8 x and w, got {x.dtype}")
+
+
 def conv_kxk_fused(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
                    beta: torch.Tensor) -> torch.Tensor:
     """The fused int8 k x k conv: `conv_kxk_fused_plain` on a CPU tensor,
-    the Hopper kernel on a CUDA tensor (contiguous int8 x and w, f32 alpha
-    and beta, all on x's device; anything else raises)."""
+    a Hopper kernel on the route `conv_kxk_route` picks on a CUDA tensor
+    (contiguous int8 x and w, f32 alpha and beta, all on x's device;
+    anything else raises)."""
     _check_shapes(x, w, alpha, beta, sizes=_SIZES)
     if x.device.type == "cpu":
         return conv_kxk_fused_plain(x, w, alpha, beta)
     if x.device.type != "cuda":
         raise ValueError(f"conv_kxk_fused runs on cpu or cuda, not {x.device}")
     _check_kernel_args(x, w, alpha, beta)
-    if x.dtype != torch.int8:
-        raise TypeError(f"the kernel takes int8 x and w, got {x.dtype}")
-    bsz, h, wd, cin = x.shape
-    kh, cout = w.shape[0], w.shape[3]
-    y = torch.empty((bsz, h - kh + 1, wd - kh + 1, cout), dtype=torch.int8,
-                    device=x.device)
-    # the kernel reads the weights as [Cout, k*k*Cin]: K-contiguous per
-    # output channel, the layout its tensor-core fragments load from
-    wt = w.reshape(kh * kh * cin, cout).t().contiguous()
-    lib = _build.load_library()
-    vec = int(cin % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, wt)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.conv_kxk_fused_s8(x.data_ptr(), wt.data_ptr(), alpha.data_ptr(),
-                                   beta.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
-                                   kh, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"conv_kxk_fused launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, "
-                           f"w {tuple(w.shape)}")
-    conv_kxk_fused.launches += 1
-    return y
+    _check_int8(x)
+    return _kxk_forward(x, w, alpha, beta, conv_kxk_route(x, w))
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+def _conv_kxk_route_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                            beta: torch.Tensor, route: str) -> torch.Tensor:
+    """The k x k kernel on CUDA tensors through the named route, whatever
+    `conv_kxk_route` would pick. For comparing and timing the two on the
+    card; no path calls it. Refuses the sm90 route at a shape it does not
+    take, on any device."""
+    _check_shapes(x, w, alpha, beta, sizes=_SIZES)
+    check_route(route, conv_kxk_route(x, w), f"{x.dtype} x {tuple(x.shape)} -> {w.shape[3]}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the routes run on cuda, not {x.device}")
+    _check_kernel_args(x, w, alpha, beta)
+    _check_int8(x)
+    return _kxk_forward(x, w, alpha, beta, route)
+
+
+#: Kernel launches since the count was last set to 0 (CPU calls don't
+#: count): all routes, and the sm90 route's alone.
 conv_kxk_fused.launches = 0
+conv_kxk_fused.sm90_launches = 0
 
 
 def _check_cout_tile(cout: int, cout_tile: int) -> None:

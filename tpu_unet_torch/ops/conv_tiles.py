@@ -18,9 +18,15 @@ multiplies and adds in two f32 roundings, as XLA does.
 Two routes compute the int8 conv:
 
 * `conv3x3_fused` (K3, ``impl='pallas'`` of the quantized engine): the
-  hand-written CUDA kernel in ``tpu_unet_torch/csrc/conv3x3_fused.cu``. On
-  a CPU tensor it runs `conv3x3_fused_plain`; on a CUDA tensor it launches
-  the kernel or raises, and counts the launch in ``conv3x3_fused.launches``.
+  hand-written CUDA kernels of ``tpu_unet_torch/csrc/conv3x3_fused.cu`` (with
+  ``csrc/conv_fused.cuh``, shared with the k x k conv), on one of two routes
+  that `conv3x3_fused_route` picks by shape: ``"sm90"`` (int8 x with Cin a
+  multiple of 16, Cout a multiple of 16 for int8 out or 8 for bf16 out, x
+  16-byte aligned: the int8 wgmma loop, in the block `sm90_block` picks)
+  and ``"simple"`` (the one-stage kernel: bf16 inputs, the rest). On a CPU
+  tensor it runs `conv3x3_fused_plain`; on a CUDA tensor it launches a
+  kernel or raises, and counts the launch in ``conv3x3_fused.launches``
+  (the sm90 route's also in ``conv3x3_fused.sm90_launches``).
 * `conv3x3_int8_xla` (``impl='xla'``): `conv_int8_acc`, an im2col and
   ``torch._int_mm`` (cuBLASLt's int8 GEMM with int32 output on the card),
   the counterpart of XLA's int8 conv, followed by the same epilogue in
@@ -238,6 +244,36 @@ def _check_tiling(cin: int, cout: int, block_rows: Optional[int],
 
 
 _KERNEL_DTYPES = (torch.int8, torch.bfloat16)
+_ROUTES = ("sm90", "simple")
+
+#: The int8 wgmma loop's blocks csrc/conv_fused.cuh builds (BM output
+#: pixels x BN output channels): 128 x 64, two per SM, where Cout <= 64;
+#: 256 x 128, one per SM (half the weight traffic per output), above.
+SM90_BLOCKS = ((128, 64), (256, 128))
+
+
+def sm90_block(cout: int) -> Tuple[int, int]:
+    """(BM, BN) of the int8 wgmma loop for a conv to `cout` channels; the
+    ring, grid and shared memory follow from these in the CUDA entry."""
+    return SM90_BLOCKS[0] if cout <= 64 else SM90_BLOCKS[1]
+
+
+def int8_sm90_takes(x: torch.Tensor, cout: int, out_kind: str) -> bool:
+    """Whether the int8 wgmma loop takes x to `cout` channels: int8 x with
+    Cin a multiple of 16 (16-byte chunks of x and w), Cout a multiple of the
+    outputs in one 16-byte store (16 int8, 8 bf16), x 16-byte aligned. w is
+    not checked: the loop reads a fresh K-major copy."""
+    vec = 16 if out_kind == "int8" else 8
+    return (x.dtype == torch.int8 and x.shape[-1] % 16 == 0 and cout % vec == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def k_major_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO [k, k, Cin, Cout] -> [Cout, k*k*Cin], contiguous: each output
+    channel's row, tap-major with ascending channels (element (dy*k + dx)*Cin
+    + c of row n is w[dy, dx, c, n]), as both kernel routes read it."""
+    kh, _, cin, cout = w.shape
+    return w.reshape(kh * kh * cin, cout).t().contiguous()
 
 
 def _check_kernel_args(x, w, alpha, beta) -> None:
@@ -259,6 +295,55 @@ def _check_kernel_args(x, w, alpha, beta) -> None:
         raise ValueError(f"empty batch or Cout: x {tuple(x.shape)}, w {tuple(w.shape)}")
     if max(x.shape) > _INT32_MAX or 9 * x.shape[3] > _INT32_MAX:
         raise ValueError(f"dimension past int32 in x {tuple(x.shape)}")
+
+
+def launch_fused(name: str, fn, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                 beta: torch.Tensor, y: torch.Tensor, *args) -> None:
+    """Call the C entry `fn` on checked CUDA tensors (K-major w) on the
+    current stream: (x, w, alpha, beta, y, B, H, W, Cin, Cout, *args,
+    stream); raise on a refused launch, naming the wrapper `name`."""
+    bsz, h, wd, cin = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(),
+                bsz, h, wd, cin, y.shape[3], *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, "
+                           f"w [{y.shape[3]}, {w.shape[1]}]")
+
+
+def conv3x3_fused_route(x: torch.Tensor, w: torch.Tensor, out_kind: str = "auto") -> str:
+    """The kernel route `conv3x3_fused` takes for x and w on the card:
+    ``"sm90"`` where `int8_sm90_takes` (int8 x, Cin a multiple of 16, Cout
+    of 16 for int8 out or 8 for bf16 out, x 16-byte aligned), else
+    ``"simple"``. It depends on dtype, channel counts, out kind and the
+    alignment of x only, not on the device."""
+    out_kind = _resolve_out_kind(x, out_kind)
+    return "sm90" if int8_sm90_takes(x, w.shape[-1], out_kind) else "simple"
+
+
+def _k3_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                out_kind: str, route: str) -> torch.Tensor:
+    """K3 on checked CUDA tensors through `route`."""
+    bsz, h, wd, _ = x.shape
+    cout = w.shape[3]
+    out_dtype = torch.int8 if out_kind == "int8" else torch.bfloat16
+    y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=out_dtype, device=x.device)
+    wk = k_major_weights(w)
+    lib = _build.load_library()
+    out8 = int(out_kind == "int8")
+    if route == "sm90":
+        launch_fused("conv3x3_fused", lib.conv3x3_fused_sm90, x, wk, alpha, beta, y, out8,
+                     *sm90_block(cout))
+        conv3x3_fused.sm90_launches += 1
+    else:
+        fn = lib.conv3x3_fused_s8 if x.dtype == torch.int8 else lib.conv3x3_fused_bf16
+        vec = int(x.shape[3] * x.element_size() % 16 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in (x, wk)))
+        launch_fused("conv3x3_fused", fn, x, wk, alpha, beta, y, out8, vec)
+    conv3x3_fused.launches += 1
+    return y
 
 
 def conv3x3_fused(
@@ -283,9 +368,11 @@ def conv3x3_fused(
     arguments: they are checked as the JAX function checks them and do not
     change what the Hopper kernel does; `interpret` is accepted and ignored.
 
-    On a CPU tensor: `conv3x3_fused_plain`. On a CUDA tensor: the Hopper
-    kernel, which takes contiguous tensors, counts each launch in
-    ``conv3x3_fused.launches``, and raises on what it does not take."""
+    On a CPU tensor: `conv3x3_fused_plain`. On a CUDA tensor: a Hopper
+    kernel on the route `conv3x3_fused_route` picks, which takes contiguous
+    tensors; each launch counts in ``conv3x3_fused.launches``, and the sm90
+    route's also in ``conv3x3_fused.sm90_launches``. What the kernels do
+    not take raises."""
     del interpret
     _check_shapes(x, w, alpha, beta)
     _check_tiling(x.shape[3], w.shape[3], block_rows, cout_tile, variant)
@@ -295,29 +382,37 @@ def conv3x3_fused(
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fused runs on cpu or cuda, not {x.device}")
     _check_kernel_args(x, w, alpha, beta)
-    bsz, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out_dtype = torch.int8 if out_kind == "int8" else torch.bfloat16
-    y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=out_dtype, device=x.device)
-    # the kernel reads the weights as [Cout, 9*Cin]: K-contiguous per output
-    # channel, the layout its tensor-core fragments load from
-    wt = w.reshape(9 * cin, cout).t().contiguous()
-    lib = _build.load_library()
-    fn = lib.conv3x3_fused_s8 if x.dtype == torch.int8 else lib.conv3x3_fused_bf16
-    vec = int(cin * x.element_size() % 16 == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x, wt)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), wt.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                y.data_ptr(), bsz, h, wd, cin, cout, int(out_kind == "int8"), vec,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_fused launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, "
-                           f"w {tuple(w.shape)}")
-    conv3x3_fused.launches += 1
-    return y
+    return _k3_forward(x, w, alpha, beta, out_kind, conv3x3_fused_route(x, w, out_kind))
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+def check_route(route: str, takes: str, what: str) -> None:
+    """Refuse an unknown route, or the sm90 route where its predicate
+    (`takes`, the route that shape gets) says "simple"."""
+    if route not in _ROUTES:
+        raise ValueError(f"no route {route!r}; the routes are {_ROUTES}")
+    if route == "sm90" and takes != "sm90":
+        raise ValueError(f"the sm90 route does not take {what}")
+
+
+def _conv3x3_fused_route_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+                                 beta: torch.Tensor, route: str,
+                                 out_kind: str = "auto") -> torch.Tensor:
+    """K3 on CUDA tensors through the named route, whatever
+    `conv3x3_fused_route` would pick: the one-stage kernel at a shape the
+    sm90 loop takes. For comparing and timing the two on the card; no path
+    of the model calls it. Refuses the sm90 route at a shape it does not
+    take, on any device."""
+    _check_shapes(x, w, alpha, beta)
+    out_kind = _resolve_out_kind(x, out_kind)
+    check_route(route, conv3x3_fused_route(x, w, out_kind),
+                f"{x.dtype} x {tuple(x.shape)} -> {w.shape[3]} ({out_kind} out)")
+    if x.device.type != "cuda":
+        raise ValueError(f"the routes run on cuda, not {x.device}")
+    _check_kernel_args(x, w, alpha, beta)
+    return _k3_forward(x, w, alpha, beta, out_kind, route)
+
+
+#: Kernel launches since the count was last set to 0 (CPU calls don't
+#: count): all routes, and the sm90 route's alone.
 conv3x3_fused.launches = 0
+conv3x3_fused.sm90_launches = 0
