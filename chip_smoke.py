@@ -58,23 +58,29 @@ Phases, each printing its own lines:
  12. the research int8 forward's kernels against their plain versions at
      one 16-tile chunk's shapes: K4 (the fused enc0 chain, bf16 x
      [16,572,572,1], C 64, bf16 and int8 skip, pool modes 'fused' and
-     'cols'; ragged shapes, C 16 and 24) within BF16_TOL, its int8 skip off
+     'cols'; ragged shapes, C 8, 16 and 24, the strip's edge widths Wo 2,
+     88, 90, 178 and a walk that does not divide over the grid) as routed
+     (sm90, every case) and through the forced simple route (the chunk),
+     each launch's route checked, within BF16_TOL, its int8 skip off
      by at most 1 on < 1e-3 of values; K5 (concat + requantize) at the four
      decoder concats and K6a-c (pair, unpair, interleave) at the pair
      path's shapes, bit for bit, with misaligned and odd-C cases;
  13. the research int8 forward at full width through evaluate_batch, on
      the model trained for 250 steps on the serving tiles and calibrated
      as evaluate(quant='int8') does (random weights leave most margins
-     within rounding noise), fused (fused_enc0 + fused_concat: K4 1, K5 4,
-     K3 14 launches per chunk, on the sm90 loop) and paired (pair_level0:
-     K6a, K6b, K6c 1 each, K3 14 on the loop): finite metrics; class maps equal to the production int8
+     within rounding noise), fused (fused_enc0 + fused_concat: K4 1 on its
+     sm90 route, K5 4, K3 14 launches per chunk, on the sm90 loop) and
+     paired (pair_level0: K6a, K6b, K6c 1 each, K3 14 on the loop): finite
+     metrics; class maps equal to the production int8
      forward's on >= 0.995 of the pixels; the logits against the same
      formulation through the kernels' plain versions and (pair) against
      production within MODEL_TOL of the scale on >= 0.999 of the values;
  14. research times: evaluate_batch of both formulations and production
-     int8 'pallas' in turns, a profile of each formulation by kernel group,
-     and K4, K5 and K6a-c per chunk against their plain versions and the
-     library routes they replace.
+     int8 'pallas' in turns, a profile of each formulation by kernel group
+     (each formulation's kernel groups must have device time), K4 per
+     chunk on its sm90 route, its simple route and the library level 0 in
+     turns, and K5 and K6a-c per chunk, each against its plain version and
+     the library route it replaces.
  15. the fused k x k int8 conv of the phase-packed level 0, as routed and
      through the forced simple route, against its plain version, bit for
      bit, at the path's packed shapes (batch 2, the sm90 loop), a 3x3 shape
@@ -112,8 +118,8 @@ Phases, each printing its own lines:
      max-pool); the
      mosaic probe (python -m tpu_unet_torch.probes.mosaic_probe): every
      piece against its oracle, K4 and K5 at the scripts' sizes, and the
-     staged chain at the chunk against K4, timed in turns with K4 and the
-     library level 0.
+     staged chain at the chunk against K4 (pooled maps equal bit for bit, a
+     gate), timed in turns with K4 and the library level 0.
 The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
@@ -1242,8 +1248,9 @@ def _cat_halves(bsz, full, crop, c, scale, gen):
 def phase12_research_kernels():
     """K4, K5 and K6a-c against their plain versions at one 16-tile chunk's
     shapes; returns {name: max abs error}."""
-    from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
-                                                 enc0_chain, enc0_chain_plain)
+    from tpu_unet_torch.ops.fused_level0 import (_enc0_chain_route_forward, concat_quantize,
+                                                 concat_quantize_plain, enc0_chain,
+                                                 enc0_chain_plain, enc0_chain_route)
     from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
                                                pair_batch_channels, pair_batch_channels_plain,
                                                unpair_batch_channels,
@@ -1252,17 +1259,37 @@ def phase12_research_kernels():
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     errs = dict.fromkeys(["enc0_chain", "concat_quantize", "pair_batch_channels",
                           "unpair_batch_channels", "interleave_pairs"], 0.0)
-    k4_cases = [((BATCH_TILES, TILE_IN, TILE_IN), 64, m, q)
+    # K4 as routed (sm90) at every case; the simple route (the first kernel,
+    # forced) at the chunk
+    k4_cases = [((BATCH_TILES, TILE_IN, TILE_IN), 64, m, q, "sm90")
                 for q in (False, True) for m in ("fused", "cols")]
-    k4_cases += [((2, 50, 86), 64, "fused", True), ((2, 50, 86), 16, "fused", False),
-                 ((3, 36, 44), 16, "cols", True), ((1, 26, 30), 24, "fused", True)]
-    for (bsz, h, w), c, mode, int8_skip in k4_cases:
+    k4_cases += [((BATCH_TILES, TILE_IN, TILE_IN), 64, "fused", q, "simple") for q in (False, True)]
+    k4_cases += [((2, 50, 86), 64, "fused", True, "sm90"),
+                 ((2, 50, 86), 16, "fused", False, "sm90"),
+                 ((3, 36, 44), 16, "cols", True, "sm90"), ((1, 26, 30), 24, "fused", True, "sm90"),
+                 # the strip's edges: Wo 2 (Ho 2), 88, 90, 178; C 8 and 24 leave most
+                 # of the wgmma's 64 channel rows zero; 560 tiles do not divide
+                 # evenly over the grid, so walks cross images
+                 ((1, 6, 6), 8, "fused", True, "sm90"), ((1, 10, 92), 24, "fused", False, "sm90"),
+                 ((1, 6, 94), 64, "fused", True, "sm90"), ((2, 10, 182), 64, "cols", False, "sm90"),
+                 ((140, 8, 96), 16, "fused", True, "sm90")]
+    for (bsz, h, w), c, mode, int8_skip, route in k4_cases:
         args = _enc0_args(bsz, h, w, c, gen)
         ref_bf16, ref_pool = enc0_chain_plain(*args)
         scale = ref_bf16.float().max().item() / 110.0 if int8_skip else 0.0
         ref_skip = enc0_chain_plain(*args, skip_scale=scale)[0] if int8_skip else ref_bf16
-        skip, pooled = enc0_chain(*args, skip_scale=scale, pool_mode=mode)
+        before = (enc0_chain.launches, enc0_chain.sm90_launches)
+        if route == "sm90":
+            if enc0_chain_route(args[0], c) != "sm90":
+                raise AssertionError(f"K4 x[{bsz},{h},{w}] C {c} is not routed to sm90")
+            skip, pooled = enc0_chain(*args, skip_scale=scale, pool_mode=mode)
+        else:
+            skip, pooled = _enc0_chain_route_forward(*args, route, skip_scale=scale)
         torch.cuda.synchronize()
+        sm90_in = int(route == "sm90")
+        if (enc0_chain.launches, enc0_chain.sm90_launches) != (before[0] + 1,
+                                                               before[1] + sm90_in):
+            raise AssertionError(f"K4 x[{bsz},{h},{w}] C {c}: not one {route} launch")
         if skip.dtype != ref_skip.dtype or skip.shape != ref_skip.shape or \
                 pooled.shape != ref_pool.shape:
             raise AssertionError(f"K4 x[{bsz},{h},{w},1] C {c}: {skip.dtype} "
@@ -1283,7 +1310,7 @@ def phase12_research_kernels():
                 errs["enc0_chain"] = max(errs["enc0_chain"], err)
                 if not err <= tol:
                     raise AssertionError(f"K4 {label} differs at x[{bsz},{h},{w}] C {c}")
-        log(f"phase 12: K4 x[{bsz},{h},{w},1] C {c} pool_mode {mode!r} skip "
+        log(f"phase 12: K4 ({route}) x[{bsz},{h},{w},1] C {c} pool_mode {mode!r} skip "
             f"{'int8' if int8_skip else 'bf16'}: " + ", ".join(msg))
         del args, ref_bf16, ref_pool, ref_skip, skip, pooled
 
@@ -1342,7 +1369,7 @@ def phase12_research_kernels():
         del args, got, ref
     log(f"phase 12: ok, K5 and K6a-c bit-exact (tolerance 0); K4's bf16 maps within "
         f"{BF16_TOL} of their scale, its int8 skip off by at most 1 on < "
-        f"{INT8_FLIP_SHARE} of values")
+        f"{INT8_FLIP_SHARE} of values, on both routes, each launch's route checked")
     return errs
 
 
@@ -1474,18 +1501,22 @@ def phase13_serve_research(cfg, data):
         qi, engine = _research_engine(model, qp, flags)
         for fn in fns.values():
             fn.launches = 0
-        fns["conv3x3_fused"].sm90_launches = 0
+        fns["conv3x3_fused"].sm90_launches = fns["enc0_chain"].sm90_launches = 0
         ms, preds = engine.evaluate_batch(images, lab)
         torch.cuda.synchronize()
         launches[key] = {name: fn.launches for name, fn in fns.items() if fn.launches}
-        launches[key]["conv3x3_fused_sm90"] = fns["conv3x3_fused"].sm90_launches
+        for name in ("conv3x3_fused", "enc0_chain"):
+            if fns[name].launches:
+                launches[key][f"{name}_sm90"] = fns[name].sm90_launches
         agree = (preds == prod_preds).float().mean().item()
         ms = ms.cpu().numpy()
         log(f"phase 13: research {key} {flags}: evaluate_batch of {n_tiles} tiles in "
             f"{n_chunks} chunk(s): launches {launches[key]}; (iou, pixel error) "
             f"{ms.tolist()}; class maps equal the production int8 forward's on {agree:.6f} "
             f"of the pixels")
-        want = {**want, "conv3x3_fused_sm90": want["conv3x3_fused"]}   # K3 all on the loop
+        # K3 and K4 all on their sm90 routes
+        want = {**want, **{f"{name}_sm90": want[name] for name in ("conv3x3_fused", "enc0_chain")
+                           if name in want}}
         if launches[key] != {name: n * n_chunks for name, n in want.items()}:
             failed.append(f"{key}: launches {launches[key]}, want {want} x {n_chunks}")
         if not (np.isfinite(ms[:, 1]).all() and agree >= RESEARCH_AGREE):
@@ -1532,8 +1563,9 @@ def phase14_time_research(model, data, qp):
     the library route it replaces; returns (tiles/s, {name: times})."""
     from tpu_unet_torch.models.unet import _max_pool2
     from tpu_unet_torch.ops.conv_tiles import quantize_activations
-    from tpu_unet_torch.ops.fused_level0 import (concat_quantize, concat_quantize_plain,
-                                                 enc0_chain, enc0_chain_plain)
+    from tpu_unet_torch.ops.fused_level0 import (_enc0_chain_route_forward, concat_quantize,
+                                                 concat_quantize_plain, enc0_chain,
+                                                 enc0_chain_plain)
     from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
                                                pair_batch_channels, pair_batch_channels_plain,
                                                unpair_batch_channels,
@@ -1565,6 +1597,11 @@ def phase14_time_research(model, data, qp):
             + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
         for name, ms in top:
             log(f"phase 14:   {ms / n:9.3f} ms/call  {name[:110]}")
+        tiles_s[f"{key} profiled_ms_per_call"] = {
+            "device_busy": busy / n, **{g: ms / n for g, ms in groups.items()}}
+        _require_groups(groups, "K3 conv3x3_fused", *(
+            ("K4 enc0_chain", "K5 concat_quantize") if key == "research fused"
+            else ("K6 interleave_copy",)))
     del engines
 
     prod_qi = _research_engine(model, qp, {})[0]
@@ -1583,9 +1620,13 @@ def phase14_time_research(model, data, qp):
             h2 = prod_qi._conv_f("enc0_conv2", prod_qi._conv_f("enc0_conv1", x))
             return prod_qi._quantize(h2, s_cat), _max_pool2(h2)
 
-        t = _per_chunk([(lambda: enc0_chain(x, *w, skip_scale=s_cat),
-                         lambda: enc0_chain_plain(x, *w, skip_scale=s_cat),
-                         level0_library)])
+        # K4 as serving routes it (sm90), its first kernel (the forced simple
+        # route) and the library level 0 in turns; then the plain version
+        t = _in_turns({"kernel": lambda: enc0_chain(x, *w, skip_scale=s_cat),
+                       "simple": lambda: _enc0_chain_route_forward(x, *w, "simple",
+                                                                   skip_scale=s_cat),
+                       "library": level0_library})
+        t["plain"] = time_ms(lambda: enc0_chain_plain(x, *w, skip_scale=s_cat), DEVICE, 3)
         t["bound"], t["bound_by"] = enc0_bound(BATCH_TILES, TILE_IN, TILE_IN,
                                                w[0].shape[-1], 1)
         out["enc0_chain"] = t
@@ -1618,8 +1659,9 @@ def phase14_time_research(model, data, qp):
             out[name] = t
             del args
     for name, t in out.items():
-        log(f"phase 14: {name} per {BATCH_TILES}-tile chunk: kernel {t['kernel']:.4f} ms, "
-            f"plain {t['plain']:.4f} ms, library {t['library']:.4f} ms, bound "
+        log(f"phase 14: {name} per {BATCH_TILES}-tile chunk: kernel {t['kernel']:.4f} ms"
+            + (f" (sm90; simple route {t['simple']:.4f} ms, in turns)" if "simple" in t else "")
+            + f", plain {t['plain']:.4f} ms, library {t['library']:.4f} ms, bound "
             f"{t['bound']:.4f} ms ({t['bound_by']})")
     return tiles_s, out
 
@@ -2195,6 +2237,10 @@ def phase19_enc0_stages():
         raise AssertionError(f"mosaic-probe lines beyond their bar: {bad}")
     chain = {r["name"]: r for r in probe if r["section"] == "chunk"}
     times["chain"] = {k: r["ms"] for k, r in chain.items()}
+    staged = chain["staged chain (3 launches)"]
+    if not staged["pooled_equal"]:
+        raise AssertionError("the staged chain's pooled map differs from K4's")
+    times["staged_pooled_equal_k4"] = staged["pooled_equal"]
     log(f"phase 19: mosaic probe: {len(probe)} lines, every one within its bar; launches "
         f"{launches}")
     return errs, times, probe, launches
@@ -2215,6 +2261,19 @@ RESEARCH_KERNELS = [
 ]
 
 
+def _k4_routes(launches, times):
+    """The K4 line's keys by route: per-chunk times of both in turns, and the
+    research fused path's launches by route."""
+    fused = launches["fused"]
+    return {"ms_by_route": {"sm90": times["enc0_chain"]["kernel"],
+                            "simple": times["enc0_chain"]["simple"]},
+            "launches_by_route": {"serve_int8_research_fused": {
+                "sm90": fused["enc0_chain_sm90"],
+                "simple": fused["enc0_chain"] - fused["enc0_chain_sm90"]}},
+            "sources": ["tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet_torch/csrc/enc0_conv1.cuh",
+                        "tpu_unet_torch/csrc/conv3x3_sm90.cuh"]}
+
+
 def research_kernel_lines(errs, launches, times, tiles_s):
     return [{
         "name": name,
@@ -2230,6 +2289,7 @@ def research_kernel_lines(errs, launches, times, tiles_s):
         "library_ms": times[name]["library"],
         "launches_by_path": {f"serve_int8_research_{path}": launches[path][name]},
         "evaluate_tiles_per_s": tiles_s,
+        **(_k4_routes(launches, times) if name == "enc0_chain" else {}),
     } for name, source, replaces, path in RESEARCH_KERNELS]
 
 
@@ -2254,8 +2314,9 @@ def stage_kernel_lines(errs, times, launches):
         "name": name,
         "route": "cuda",
         "source": "tpu_unet_torch/csrc/enc0_stages.cu",
-        "sources": (["tpu_unet_torch/csrc/enc0_stages.cu", "tpu_unet_torch/csrc/conv3x3_sm90.cuh"]
-                    if key == "conv2" else ["tpu_unet_torch/csrc/enc0_stages.cu"]),
+        "sources": ["tpu_unet_torch/csrc/enc0_stages.cu"] + {
+            "conv1": ["tpu_unet_torch/csrc/enc0_conv1.cuh"],
+            "conv2": ["tpu_unet_torch/csrc/conv3x3_sm90.cuh"]}.get(key, []),
         "replaces": replaces,
         "replaces_also": also,
         "launches": launches[name],
@@ -2424,6 +2485,7 @@ def main() -> None:
         "probe": [{k: r[k] for k in ("section", "label", "route", "ms")} for r in gather_probe],
     }] + stage_kernel_lines(stage_errs, stage_ms, stage_launches),
         "enc0_chain_at_chunk_ms": stage_ms["chain"],
+        "staged_chain_pooled_equal_k4": stage_ms["staged_pooled_equal_k4"],
         "mosaic_probe": [{k: r[k] for k in ("section", "name", "ms")} for r in mosaic_probe],
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
         "phase_level0_train_step_ms": phase_train_ms}), flush=True)

@@ -112,6 +112,7 @@ def test_build_names_library_by_source_hash():
                                                    "conv_kxk_fused.cu",
                                                    "edt_column_pass.cu",
                                                    "enc0_chain.cu",
+                                                   "enc0_conv1.cuh",
                                                    "enc0_stages.cu",
                                                    "interleave.cu",
                                                    "row_gather.cu"]

@@ -27,8 +27,9 @@ from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3
                                            conv3x3_int8_xla)
 from tpu_unet_torch.ops import enc0_stages as st
 from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
-from tpu_unet_torch.ops.fused_level0 import (_inverse, concat_quantize, concat_quantize_plain,
-                                             enc0_chain, enc0_chain_plain)
+from tpu_unet_torch.ops.fused_level0 import (_enc0_chain_route_forward, _inverse,
+                                             concat_quantize, concat_quantize_plain, enc0_chain,
+                                             enc0_chain_plain, enc0_chain_route)
 from tpu_unet_torch.ops.gather import row_gather, row_gather_plain
 from tpu_unet_torch.ops.interleave import (interleave_pairs, interleave_pairs_plain,
                                            pair_batch_channels, pair_batch_channels_plain,
@@ -456,36 +457,88 @@ def _enc0_inputs(shape, c, x_dtype, device, seed=0):
     return x, w1, b1, w2, b2
 
 
+def _enc0_close(got, ref):
+    """K4's bars: a bf16 map within 2e-2 of its scale (the two sum conv1 and
+    conv2 in other orders); an int8 skip off by at most 1 on < 1e-3 of
+    values."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    d = (got.float() - ref.float()).abs()
+    if got.dtype == torch.int8:
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+    else:
+        assert d.max().item() <= 2e-2 * max(ref.float().abs().max().item(), 1.0)
+
+
 @pytest.mark.parametrize("shape,c", [
     ((2, 36, 44), 64),     # main-path channels, one full tile and edge tiles
     ((1, 26, 30), 8),      # Ho, Wo not multiples of the 8 x 32 tile
     ((3, 22, 70), 16),
     ((1, 14, 40), 24),     # C not a multiple of 16
+    ((1, 6, 6), 8),        # Ho = Wo = 2: one sm90 tile of 2 columns
+    ((1, 10, 92), 24),     # Wo = 88: one whole sm90 tile
+    ((1, 6, 94), 64),      # Wo = 90: a last tile of 2 columns
+    ((2, 10, 182), 64),    # Wo = 178: two tiles and a 2-column one
+    ((2, 12, 132), 64),    # Wo = 128: a last tile of 40 columns, as at 572
+    ((140, 8, 96), 16),    # 560 tiles: not a multiple of the grid, walks cross images
 ])
 @pytest.mark.parametrize("int8_skip", [False, True])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_enc0_chain_kernel_matches_plain(cuda, shape, c, int8_skip, x_dtype):
-    """K4 against its plain version (f32 convs, TF32 off): the bf16 skip and
-    the pooled map within 2e-2 of their scale (the two sum conv1 and conv2
-    in other orders); the int8 skip off by at most 1 on < 1e-3 of values."""
+    """K4 as routed (sm90) against its plain version (f32 convs, TF32 off):
+    the bf16 skip and the pooled map within 2e-2 of their scale; the int8
+    skip off by at most 1 on < 1e-3 of values."""
     args = _enc0_inputs(shape, c, x_dtype, cuda)
     scale = 0.0
     if int8_skip:
         scale = enc0_chain_plain(*args)[0].float().max().item() / 110.0
-    before = enc0_chain.launches
+    assert enc0_chain_route(args[0], c) == "sm90"
+    before = (enc0_chain.launches, enc0_chain.sm90_launches)
     skip, pooled = enc0_chain(*args, skip_scale=scale)
-    assert enc0_chain.launches == before + 1
+    assert (enc0_chain.launches, enc0_chain.sm90_launches) == (before[0] + 1, before[1] + 1)
     rskip, rpooled = enc0_chain_plain(*args, skip_scale=scale)
     torch.cuda.synchronize()
-    assert skip.dtype == rskip.dtype and skip.shape == rskip.shape
-    assert pooled.dtype == torch.bfloat16 and pooled.shape == rpooled.shape
-    for got, ref in ((skip, rskip), (pooled, rpooled)):
-        d = (got.float() - ref.float()).abs()
-        if got.dtype == torch.int8:
-            assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
-            assert 0 < (ref > 0).float().mean() < 1
-        else:
-            assert d.max().item() <= 2e-2 * max(ref.float().abs().max().item(), 1.0)
+    assert pooled.dtype == torch.bfloat16
+    _enc0_close(skip, rskip)
+    _enc0_close(pooled, rpooled)
+    if int8_skip:
+        assert 0 < (rskip > 0).float().mean() < 1
+
+
+@pytest.mark.parametrize("shape,c", [((2, 36, 44), 64), ((1, 10, 182), 24), ((16, 60, 572), 64),
+                                     ((3, 8, 96), 8)])
+@pytest.mark.parametrize("int8_skip", [False, True])
+def test_enc0_chain_sm90_matches_simple(cuda, shape, c, int8_skip):
+    """The two routes, forced, at K4's bars; each launch counted by route."""
+    args = _enc0_inputs(shape, c, torch.bfloat16, cuda, seed=3)
+    scale = enc0_chain_plain(*args)[0].float().max().item() / 110.0 if int8_skip else 0.0
+    before = (enc0_chain.launches, enc0_chain.sm90_launches)
+    simple = _enc0_chain_route_forward(*args, "simple", skip_scale=scale)
+    assert (enc0_chain.launches, enc0_chain.sm90_launches) == (before[0] + 1, before[1])
+    sm90 = _enc0_chain_route_forward(*args, "sm90", skip_scale=scale)
+    assert (enc0_chain.launches, enc0_chain.sm90_launches) == (before[0] + 2, before[1] + 1)
+    torch.cuda.synchronize()
+    for got, ref in zip(sm90, simple):
+        _enc0_close(got, ref)
+
+
+def test_enc0_chain_refused_launch_raises(cuda, monkeypatch):
+    """The CUDA entry checks the walk it is handed: a plan that is not the
+    shape's is refused, and the wrapper raises RuntimeError, counts nothing
+    and does not fall back to the simple route or the plain version."""
+    from tpu_unet_torch.ops import fused_level0
+
+    args = _enc0_inputs((2, 10, 182), 16, torch.bfloat16, cuda)
+    good = fused_level0.enc0_plan(2, 10, 182)
+    monkeypatch.setattr(fused_level0, "enc0_plan",
+                        lambda *a: good._replace(tiles=good.tiles + 1))
+    before = (enc0_chain.launches, enc0_chain.sm90_launches)
+    with pytest.raises(RuntimeError, match="sm90 route"):
+        enc0_chain(*args)
+    assert (enc0_chain.launches, enc0_chain.sm90_launches) == before
+    with pytest.raises(ValueError):
+        _enc0_chain_route_forward(*args, "fast")
+    with pytest.raises(ValueError):
+        enc0_chain(*_enc0_inputs((1, 10, 20), 12, torch.bfloat16, cuda))
 
 
 def _halves(shape, device, seed=0):
@@ -827,6 +880,29 @@ def test_conv1_stage_kernel_matches_plain(cuda, taps, dtype, c, bias):
     assert _bf16_ulp_ok(got, ref)
 
 
+@pytest.mark.parametrize("shape,c,taps,dtype", [
+    ((3, 5, 7, 9), 16, True, torch.float32),     # 105 pixels: runs cross row and image ends
+    ((2, 1, 3, 9), 64, True, torch.float32),     # 6 pixels: one run past the slab's end
+    ((2, 7, 21), 24, False, torch.float32),      # Ho 5 (the last row pair cut), Wo 19
+    ((2, 7, 21), 24, False, torch.bfloat16),
+    ((3, 4, 20), 8, False, torch.bfloat16),      # Ho 2, Wo 18: one row pair per image
+    ((2, 9, 130), 128, False, torch.float32),    # C 128: 16 channel groups a pixel
+])
+def test_conv1_stage_runs_cross_row_and_image_ends(cuda, shape, c, taps, dtype):
+    """Within one bf16 ulp of the plain version where the producer's pixel
+    runs (16 pixels of two output rows; of the flat pixel order for the
+    slab) end past a row, an image or the slab, and at odd output extents."""
+    g = torch.Generator(device=cuda).manual_seed(len(shape) + c)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w9 = torch.randn((9, c), generator=g, device=cuda) * 0.5
+    b = torch.randn((c,), generator=g, device=cuda) * 0.1
+    got = st.conv1_stage(x, w9, b, taps=taps)
+    ref = st.conv1_stage_plain(x, w9, b, taps=taps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _bf16_ulp_ok(got, ref)
+
+
 @pytest.mark.parametrize("shape,cin,cout", [((2, 13, 37), 64, 64), ((1, 11, 21), 16, 24),
                                             ((2, 10, 34), 24, 16), ((1, 19, 7), 8, 64)])
 @pytest.mark.parametrize("relu_bf16", [False, True])
@@ -892,16 +968,21 @@ def test_stage_kernels_refuse_what_they_do_not_take(cuda):
                       st.pool_quant_stage.launches)
 
 
-def test_staged_chain_matches_enc0_chain(cuda):
+@pytest.mark.parametrize("shape,c", [((2, 44, 76), 64), ((2, 20, 136), 16), ((1, 14, 132), 24),
+                                     ((1, 10, 572), 64)])
+def test_staged_chain_matches_enc0_chain(cuda, shape, c):
     """conv1 -> conv2 (ReLU, bf16) -> pool + int8 skip against K4 with b2 =
-    0: the same sums in the same order, so the pooled maps are equal; the
-    int8 skip quantizes bf16(h2), not h2, so it is off by at most 1."""
+    0: the conv2 stage and K4's sm90 route issue one MMA step
+    (`strip_mma`) on the same h1, so the pooled maps are equal; the int8
+    skip quantizes bf16(h2), not h2, so it is off by at most 1. C 16 and 24
+    leave most of the wgmma's 64 channel rows zero; widths 128 and 568 end
+    in a 40-column tile."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    c = 64
-    x = torch.rand((2, 44, 76, 1), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.rand((*shape, 1), generator=g, device=cuda).to(torch.bfloat16)
     w1 = (torch.randn((3, 3, 1, c), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     b1 = torch.randn((c,), generator=g, device=cuda) * 0.1
-    w2 = (torch.randn((3, 3, c, c), generator=g, device=cuda) * 0.06).to(torch.bfloat16)
+    w2 = (torch.randn((3, 3, c, c), generator=g, device=cuda) * (2 / (9 * c)) ** 0.5
+          ).to(torch.bfloat16)
     b2 = torch.zeros((c,), device=cuda)
     scale = enc0_chain(x, w1, b1, w2, b2)[0].float().max().item() / 110
     skip, pooled = enc0_chain(x, w1, b1, w2, b2, skip_scale=scale)

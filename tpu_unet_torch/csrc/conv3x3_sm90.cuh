@@ -4,11 +4,13 @@
 // Cin, Cout <= 64; ops/conv_pallas.py::sm90_plan picks one, and the flat
 // loop's block.
 //
-// Included by conv3x3_bias_relu.cu (K1's bf16 route: bias + ReLU -> bf16)
-// and enc0_stages.cu (the Mosaic probes' conv2 stage: f32 out, or
-// bf16(ReLU)); conv_fused.cuh builds its int8 loop on this file's ring,
-// copies, swizzle and wgmma helpers. Everything here has internal linkage,
-// so each file builds the instances it launches.
+// Included by conv3x3_bias_relu.cu (K1's bf16 route: bias + ReLU -> bf16),
+// enc0_stages.cu (the Mosaic probes' conv2 stage: f32 out, or bf16(ReLU))
+// and enc0_chain.cu (K4's sm90 route runs the strip loop's MMA step,
+// `strip_mma`, on h1 rows its conv1 computes); conv_fused.cuh builds its
+// int8 loop on this file's ring, copies, swizzle and wgmma helpers.
+// Everything here has internal linkage, so each file builds the instances
+// it launches.
 //
 //   x [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major: each output
 //   channel's row, tap-major with ascending channels), bias [Cout] bf16
@@ -423,6 +425,26 @@ __host__ __device__ constexpr int strip_smem_bytes() {
   return STRIP_B + STRIP_NB * STRIP_BYTES + SMEM_ALIGN;
 }
 
+// The strip loop's MMA step, D += W x X^T for one output row of a tile:
+// the 9 taps x 4 k16 wgmma m64n88k16 of one warpgroup on its three input
+// rows (rows[dy] the shared-memory address of input row dy, each a row of
+// the strip layout: pixel px at px * 128 bytes, 128-byte swizzle), with the
+// resident weights at `sw` (tap t at t * 8 KB). Every caller (K1's strip
+// route, the conv2 stage, K4's sm90 route) issues this one sequence, so
+// their f32 sums of the same operands are equal bit for bit. The caller
+// fences before and commits after.
+__device__ __forceinline__ void strip_mma(float (&acc)[STRIP_TW / 2], uint32_t sw,
+                                          const uint32_t (&rows)[3]) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    const uint32_t px0 = rows[dy] + dx * 128;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_n88(acc, desc_sw128(sw + tap * 8192 + kk * 32), desc_sw128(px0 + kk * 32));
+  }
+}
+
 template <int EPI>
 __global__ void __launch_bounds__(STRIP_THREADS, 1)
     conv3x3_strip_kernel(const Conv p, long long tiles, int tiles_c, int tiles_img) {
@@ -490,14 +512,9 @@ __global__ void __launch_bounds__(STRIP_THREADS, 1)
     const uint32_t buf = sstrip + (uint32_t)((k % STRIP_NB) * STRIP_BYTES);
     wgmma_fence();
     fence_acc(acc);
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const uint32_t px0 = buf + (wg + dy) * STRIP_ROW + dx * 128;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_n88(acc, desc_sw128(sb + tap * 8192 + kk * 32), desc_sw128(px0 + kk * 32));
-    }
+    const uint32_t rows[3] = {buf + wg * STRIP_ROW, buf + (wg + 1) * STRIP_ROW,
+                              buf + (wg + 2) * STRIP_ROW};
+    strip_mma(acc, sb, rows);
     wgmma_commit();
     prefetch(k + STRIP_NB - 1);   // into the buffer tile k - 1 used, under the MMAs
     wgmma_wait<0>();

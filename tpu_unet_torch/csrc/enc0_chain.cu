@@ -10,36 +10,81 @@
 //          or clamp(rint(h2 * inv_skip), 0, 127) as int8 (skip_i8), from the f32 h2
 //   pooled = bf16(max of each 2x2 window of h2)  [B, (H-4)/2, (W-4)/2, C]
 //
-// The conv1 tile lives only in shared memory and the pool reads h2 from
-// registers: of the chain's tensors only x is read and only the skip and the
-// pooled map are written.
+// h1 lives only in shared memory and h2 only in registers and shared memory:
+// of the chain's tensors only x is read and only the skip and the pooled map
+// are written.
 //
 // What bounds it on the H100: at C = 64, conv2 does 2*9*64*64 = 73.7 kop per
 // output pixel against 129 bytes written (int8 skip plus a quarter pixel of
 // bf16 pool), ~570 op/byte, above the card's ~295 bf16 op/byte ridge: the
 // tensor cores (conv2) bound it, conv1's 9 FMAs per value run on the f32
-// units beside them. The design:
-//   * one block per SM walks over 8 x 32 tiles of conv2 outputs (all C
-//     channels) of every image, with conv2's weights resident in shared
-//     memory for the whole walk (loaded once);
-//   * per tile the (8+4) x (32+4) input patch is staged as f32, conv1 runs
-//     by FMAs into a 10 x 34 x CP bf16 tile in shared memory (CP = C rounded
-//     up to 16, the channels past C zero), and conv2 is an implicit GEMM on
-//     mma.sync m16n8k16 bf16 -> f32, M = 256 pixels (warp w owns tile row w,
-//     two m16 tiles), N = C (n8 tiles), K = 9*CP (tap-major, each k16 step
-//     inside one tap), with K3's fragment layout (csrc/conv3x3_fused.cu);
-//   * shared-memory rows are padded by 16 bytes so that the 32 lanes of a
-//     fragment load fall on 32 banks;
-//   * the epilogue adds b2 and applies ReLU on the accumulators, stores the
-//     skip, pools column pairs with a lane shuffle and row pairs through
-//     shared memory (odd warps hand their column maxima to the even warp
-//     above), and stores the pooled map.
-// Edge tiles compute on zero-filled input and store only inside the output.
-// Not yet here: wgmma, TMA, a cp.async ring, coalesced (staged) stores.
+// units beside them.
+//
+// Two routes (ops/fused_level0.py: `enc0_chain_route` gives "sm90" for every
+// shape the kernels take; `_enc0_chain_route_forward` forces one):
+//
+// "sm90", `enc0_chain_sm90_kernel`: the strip loop's MMA step fed by a
+// conv1 producer in place of its copies, warp-specialised.
+//   * Persistent blocks, one per SM, each walks a contiguous range of tiles
+//     of 2 output rows x 88 columns, row pairs fastest, then column tiles,
+//     then images (ops/fused_level0.py::enc0_plan, enc0_tile; the entry
+//     checks the plan it is given). oy is even and 88 is even, so a tile
+//     holds whole 2x2 pool windows and the two wgmma warpgroups hold one
+//     pool row pair. conv2's weights (9 x 64 x 64 bf16) stay in shared
+//     memory in the 128-byte swizzle for the walk.
+//   * A tile reads h1 rows oy .. oy+3 x 90 pixels x 64 channels from a
+//     ring of 8 h1 rows in shared memory (pixel px of a row at px * 128
+//     bytes, 16-byte chunk j at (j ^ (px & 7)) << 4). Vertical neighbours
+//     share 2 rows, so a tile adds 2 new rows, 4 where it starts a column:
+//     conv1 runs ~1.1 times per h1 value, not 2.
+//   * Warpgroups 2 and 3 (the producer) compute the new rows with the conv1
+//     producer of enc0_conv1.cuh: thread (group, run) computes 8 channels
+//     of 3 pixels of 2 (or 4) rows at once, from an x patch (rows oy ..
+//     oy+5, f32) staged in shared memory a tile ahead, so that its loads
+//     run under the FMAs before. Pixels past the image and channels past C
+//     are zero, as the strip loop's zero-filled copies are.
+//     fence.proxy.async and a named barrier hand the rows to wgmma. The
+//     producer also writes each tile's staged outputs to global memory, one
+//     tile behind.
+//   * Warpgroups 0 and 1 run conv2 as the strip loop's MMA step
+//     (`strip_mma`, 36 wgmma m64n88k16 each, channels x pixels), so the f32
+//     sums equal the conv2 stage's bit for bit; then b2, ReLU, the int8 or
+//     bf16 skip and the column max of each pool window (in registers) go to
+//     a staging buffer.
+//   * The row max of each pool window is taken as the pooled map is
+//     stored: each warpgroup stages its column maxima (bf16, which commutes
+//     with max), and a pooled 16-byte chunk is the max of the two.
+//   * Skip and pooled map go out in 16-byte stores (8 bytes for an int8
+//     skip whose C is not a multiple of 16), contiguous along each row.
+//   * setmaxnreg gives the producer 152 registers a thread (80 hold its
+//     weights) and the wgmma warpgroups 104 (44 accumulators).
+// What it leaves on the table (PERF.md): the output staging overlaps no
+// MMA (double accumulators would need ~88 more registers a thread), and
+// conv1's FMAs are bound per warp.
+//
+// "simple", `enc0_chain_kernel`, the route's first design: one block per
+// SM walks over 8 x 32 tiles with conv2's weights resident; per tile the
+// (8+4) x (32+4) input patch is staged as f32, conv1 runs by FMAs into a 10
+// x 34 x CP bf16 tile in shared memory (CP = C rounded up to 16, the
+// channels past C zero), and conv2 is an implicit GEMM on mma.sync
+// m16n8k16 bf16 -> f32, M = 256 pixels (warp w owns tile row w, two m16
+// tiles), N = C (n8 tiles), K = 9*CP (tap-major, each k16 step inside one
+// tap), with K3's fragment layout; shared-memory rows are padded by 16
+// bytes so that the 32 lanes of a fragment load fall on 32 banks; the
+// epilogue adds b2 and applies ReLU on the accumulators, stores the skip,
+// pools column pairs with a lane shuffle and row pairs through shared
+// memory, and stores the pooled map. Nothing overlaps: the tensor cores
+// idle through the patch load, conv1 and the stores. Kept only so that a
+// comparison can time the two routes in turns.
+// Edge tiles of both compute on zero-filled input and store only inside
+// the output.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "conv3x3_sm90.cuh"
+#include "enc0_conv1.cuh"
 
 namespace {
 
@@ -316,6 +361,351 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2t, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the sm90 route ----------------------------------------------------------
+
+constexpr int SM90_THREADS = 4 * 128;      // warpgroups 0, 1: conv2 (wgmma); 2, 3: conv1, stores
+constexpr int CONSUMERS = 2 * 128;
+constexpr int PRODUCERS = SM90_THREADS - CONSUMERS;
+// Registers per thread after setmaxnreg: the conv1 warpgroups hold 80
+// weights and up to 32 running sums, the wgmma warpgroups 44 accumulators.
+constexpr int CONSUMER_REGS = 104, PRODUCER_REGS = 152;
+static_assert(CONSUMERS * CONSUMER_REGS + PRODUCERS * PRODUCER_REGS == 65536, "the SM's registers");
+constexpr int STW = sm90::STRIP_TW;        // a tile's output columns
+constexpr int RUN = 3;      // h1 pixels of one conv1 run; 32 runs fill a 96-pixel h1 row
+static_assert(32 * RUN * 128 == sm90::STRIP_ROW, "the runs fill an h1 row");
+constexpr int RING = 8;     // h1 rows: a tile's 4 and the next tile's new ones (2, or 4)
+constexpr int XCOLS = 32 * RUN + 2;        // x columns of a tile
+constexpr int PATCH = 6 * XCOLS;           // a tile's x patch: 6 rows x 98 columns, f32
+constexpr int PTW = STW / 2;               // pooled columns of a tile
+constexpr int LDP = 64 * 2 + 16;           // staged pooled pixel row, padded
+// staged skip pixel row, padded
+__host__ __device__ constexpr int stage_lds(bool skip_i8) { return 64 * (skip_i8 ? 1 : 2) + 16; }
+constexpr int STAGE_BYTES = 2 * STW * stage_lds(false) + 2 * PTW * LDP;
+// Shared memory: conv2's weights, the ring of h1 rows, the staged outputs
+// of one tile, two x patch slots.
+constexpr int SM90_RING = sm90::STRIP_B;
+constexpr int SM90_STAGE = SM90_RING + RING * sm90::STRIP_ROW;
+constexpr int SM90_PATCH = SM90_STAGE + STAGE_BYTES;
+constexpr int SM90_SMEM = SM90_PATCH + 2 * PATCH * 4 + sm90::SMEM_ALIGN;
+static_assert(SM90_SMEM <= sm90::SMEM_MAX, "the weights, the ring and the staging fit the card");
+// Named barriers (0 is __syncthreads), a pair of each for alternate tiles
+// (k % 2): FULL (tile k's new h1 rows are computed: conv1 arrives, conv2
+// waits), DONE (both conv2 warpgroups have read tile k's rows: conv2
+// arrives, conv1 waits before it overwrites them), STAGED (tile k's outputs
+// are staged: conv2 arrives, the stores wait), FREE (they are stored: conv1
+// arrives, the next staging waits); and STEP among the conv1 warpgroups (a
+// step's x patch is staged and read).
+constexpr int BAR_FULL = 1, BAR_DONE = 3, BAR_STAGED = 5, BAR_FREE = 7, BAR_STEP = 9;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Publishes this thread's shared-memory writes to the threads that sync on `id`.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+struct Chain {
+  const void* x;                 // [B, H, W], f32 or bf16
+  const float* w1;               // [9, C], tap-major
+  const float* b1;               // [C]
+  const __nv_bfloat16* w2;       // [C, 9, C], K-major: each output channel's row
+  const float* b2;               // [C]
+  void* skip;                    // [B, Ho, Wo, C], int8 or bf16
+  uint16_t* pooled;              // [B, Ho/2, Wo/2, C] bf16
+  int H, W, Ho, Wo, C;
+  float inv_skip;
+  long long tiles;               // enc0_plan: B * tiles_img
+  int tiles_c, tiles_img;        // ceil(Wo / 88), Ho / 2 * tiles_c
+};
+
+// Tile t of the walk: image b, column tile c (output columns 88 c .. 88 c +
+// 87), row pair r (output rows 2 r, 2 r + 1). Row pairs run fastest, then
+// column tiles, then images, so the tiles of a block's contiguous range are
+// mostly vertical neighbours (ops/fused_level0.py::enc0_tile is the same
+// arithmetic). A cursor steps through them without dividing.
+struct Walk {
+  long long b;
+  int c, r;
+  __device__ __forceinline__ int oy() const { return 2 * r; }
+  __device__ __forceinline__ int ox0() const { return c * STW; }
+};
+
+__device__ __forceinline__ Walk walk_at(const Chain& p, long long t) {
+  Walk w;
+  w.b = t / p.tiles_img;
+  const int rem = (int)(t - w.b * p.tiles_img), pairs = p.Ho / 2;
+  w.c = rem / pairs;
+  w.r = rem - w.c * pairs;
+  return w;
+}
+
+__device__ __forceinline__ void walk_next(const Chain& p, Walk& w) {
+  if (++w.r == p.Ho / 2) {
+    w.r = 0;
+    if (++w.c == p.tiles_c) {
+      w.c = 0;
+      ++w.b;
+    }
+  }
+}
+
+// The max of two pairs of bf16 values (exact: the max of bf16 values is one).
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  const float lo = fmaxf(__uint_as_float(a << 16), __uint_as_float(b << 16));
+  const float hi = fmaxf(__uint_as_float(a & 0xffff0000u), __uint_as_float(b & 0xffff0000u));
+  return enc0::pack_bf16x2(lo, hi);
+}
+
+template <typename TX, bool SKIP_I8>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    enc0_chain_sm90_kernel(const Chain p) {
+  constexpr int SB = SKIP_I8 ? 1 : 2;          // bytes per skip value
+  constexpr int LDS = stage_lds(SKIP_I8);      // staged skip pixel row
+  constexpr int POOL = 2 * STW * LDS;          // then each conv2 warpgroup's column maxima
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t pad = (sm90::SMEM_ALIGN - (raw & (sm90::SMEM_ALIGN - 1))) & (sm90::SMEM_ALIGN - 1);
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t sb = raw + pad;               // the weights, tap t at t * 8 KB
+  unsigned char* stage = smem + SM90_STAGE;
+  const int tid = threadIdx.x;
+  // h1 row v of the block's walk (v counts the rows computed) in the ring
+  auto ring_row = [](long long v) { return SM90_RING + (int)(v % RING) * sm90::STRIP_ROW; };
+  // this block's tiles: lo + k, k < n (the grid is at most the tile count,
+  // so n >= 1; ops/fused_level0.py::enc0_block_tiles). Tile k reads h1 rows
+  // base(k) .. base(k) + 3 of the walk: a tile that starts a column (row
+  // pair 0, or the block's first tile) takes 4 new rows, the others reuse
+  // the 2 below and add 2.
+  const long long lo = blockIdx.x * p.tiles / gridDim.x;
+  const long long n = (blockIdx.x + 1) * p.tiles / gridDim.x - lo;
+
+  // conv2's weights once, as the strip loop loads them: row n, chunk j, tap t
+  for (int i = tid; i < 9 * 64 * 8; i += SM90_THREADS) {
+    const int t = i / (64 * 8), nn = (i / 8) % 64, j = i % 8;
+    const bool ok = nn < p.C && j * 8 < p.C;
+    sm90::cp_async16(sb + t * 8192 + nn * 128 + ((j ^ (nn & 7)) << 4),
+                     ok ? (const void*)(p.w2 + ((long long)nn * 9 + t) * p.C + j * 8) : p.w2,
+                     ok ? 16u : 0u);
+  }
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  sm90::fence_proxy_async();                   // read by wgmma
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- warpgroups 2, 3: conv1 into the ring, and the outputs out ----
+    // Thread (g, run) computes channels 8 g .. 8 g + 7 of pixels 3 run ..
+    // 3 run + 2 of a tile's new h1 rows; 8 adjacent lanes write one
+    // 128-byte pixel row.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int pt = tid - CONSUMERS;
+    const int g = pt & 7, run = pt >> 3;
+    const bool live = g * 8 < p.C;
+    const TX* x = static_cast<const TX*>(p.x);
+    enc0::Conv1Group cw;
+    if (live) enc0::load_group(cw, p.w1, p.b1, p.C, g * 8);
+
+    // Tile k's x patch, rows oy .. oy+5 x columns ox0 .. ox0+97 (0 past the
+    // image) in f32: fetched into registers a tile ahead, so that the loads
+    // run under the FMAs of the tile before, and put in patch slot k % 2.
+    constexpr int PER = (PATCH + PRODUCERS - 1) / PRODUCERS;
+    float* patches = reinterpret_cast<float*>(smem + SM90_PATCH);
+    auto fetch = [&](const Walk& w, float (&v)[PER]) {
+      const int ox0 = w.ox0();
+      const TX* xb = x + (w.b * p.H + w.oy()) * p.W + ox0;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int e = pt + PRODUCERS * i, r = e / XCOLS, c = e - r * XCOLS;
+        v[i] = e < PATCH && ox0 + c < p.W ? enc0::load_x<TX>(xb + r * p.W + c) : 0.f;
+      }
+    };
+    auto put_patch = [&](long long k, const float (&v)[PER]) {
+      float* slot = patches + (k & 1) * PATCH;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        if (pt + PRODUCERS * i < PATCH) slot[pt + PRODUCERS * i] = v[i];
+    };
+
+    // Tile k's new h1 rows (all 4 where it starts a column, else rows 2, 3)
+    // into ring rows base + q.
+    auto produce = [&](long long k, const Walk& w, bool all4, long long base) {
+      const int px0 = run * RUN;
+      const int inside = p.W - 2 - (w.ox0() + px0);   // the run's pixels inside the image
+      const float* xp = patches + (k & 1) * PATCH + px0;
+      auto put = [&](int q, int i, uint4 v) {
+        const int px = px0 + i;
+        if (i >= inside) v = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(smem + ring_row(base + q) + px * 128 + ((g ^ (px & 7)) << 4)) = v;
+      };
+      if (live && inside > 0) {
+        if (all4)
+          enc0::conv1_rows<RUN, 4>(cw, [&](int r, int j) { return xp[r * XCOLS + j]; }, put);
+        else
+          enc0::conv1_rows<RUN, 2>(cw, [&](int r, int j) { return xp[(r + 2) * XCOLS + j]; },
+                                   [&](int q, int i, uint4 v) { put(q + 2, i, v); });
+      } else {
+#pragma unroll
+        for (int i = 0; i < RUN; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (all4 || q >= 2) put(q, i, make_uint4(0u, 0u, 0u, 0u));
+      }
+    };
+
+    // Tile w's staged outputs to global memory, each row's bytes contiguous:
+    // thread pt takes piece pt % per_px of pixels pt / per_px + i * step
+    // (a pixel row is per_px pieces; threads past step * per_px idle).
+    const int skip_piece = (p.C * SB) % 16 == 0 ? 16 : 8;   // 8: an int8 skip, C % 16 == 8
+    const int skip_pp = p.C * SB / skip_piece, pool_pp = p.C / 8;
+    const int skip_q = pt % skip_pp, skip_p0 = pt / skip_pp, skip_step = PRODUCERS / skip_pp;
+    const int pool_q = pt % pool_pp, pool_p0 = pt / pool_pp, pool_step = PRODUCERS / pool_pp;
+    auto store = [&](const Walk& w) {
+      const int oy = w.oy(), ox0 = w.ox0();
+      const int cols = min(STW, p.Wo - ox0);   // even, as Wo and ox0 are
+      const int row_bytes = p.C * SB;
+      unsigned char* skip = static_cast<unsigned char*>(p.skip) + skip_q * skip_piece;
+      const unsigned char* st = stage + skip_q * skip_piece;
+      if (skip_p0 < skip_step) {
+        for (int i = skip_p0; i < 2 * cols; i += skip_step) {
+          const int r = i >= cols, px = i - r * cols;
+          unsigned char* dst = skip + ((w.b * p.Ho + oy + r) * p.Wo + ox0 + px) * row_bytes;
+          const unsigned char* src = st + (r * STW + px) * LDS;
+          if (skip_piece == 16)
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+          else
+            *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+        }
+      }
+      uint16_t* pooled = p.pooled + ((w.b * (p.Ho / 2) + oy / 2) * (p.Wo / 2) + ox0 / 2) * p.C +
+                         pool_q * 8;
+      if (pool_p0 < pool_step) {
+        for (int px = pool_p0; px < cols / 2; px += pool_step) {
+          const uint4 u = *reinterpret_cast<const uint4*>(stage + POOL + px * LDP + pool_q * 16);
+          const uint4 l =
+              *reinterpret_cast<const uint4*>(stage + POOL + (PTW + px) * LDP + pool_q * 16);
+          *reinterpret_cast<uint4*>(pooled + (long long)px * p.C) =
+              make_uint4(max_bf16x2(u.x, l.x), max_bf16x2(u.y, l.y), max_bf16x2(u.z, l.z),
+                         max_bf16x2(u.w, l.w));
+        }
+      }
+    };
+
+    // One tile ahead of conv2: step k computes tile k + 1's rows (once
+    // conv2 is done with tile k - 1's, whose ring rows they take), then
+    // stores tile k. Cursors: wf the tile whose x patch is fetched, wp the
+    // tile whose rows are computed, ws the tile stored.
+    Walk wf = walk_at(p, lo), wp = wf, ws = wf;
+    float v[PER];
+    fetch(wf, v);
+    put_patch(0, v);
+    walk_next(p, wf);
+    if (n > 1) fetch(wf, v);
+    bar_sync(BAR_STEP, PRODUCERS);
+    produce(0, wp, true, 0);
+    sm90::fence_proxy_async();                 // generic-proxy writes, read by wgmma
+    bar_arrive(BAR_FULL, SM90_THREADS);
+    if (n > 1) put_patch(1, v);
+    bar_sync(BAR_STEP, PRODUCERS);
+    long long base = 0;                        // tile k + 1's first ring row, below
+#pragma unroll 1
+    for (long long k = 0; k < n; ++k) {
+      if (k >= 1) bar_sync(BAR_DONE + (int)((k - 1) & 1), SM90_THREADS);
+      if (k + 1 < n) {
+        walk_next(p, wf);
+        if (k + 2 < n) fetch(wf, v);
+        walk_next(p, wp);
+        const bool all4 = wp.r == 0;
+        base += all4 ? 4 : 2;
+        produce(k + 1, wp, all4, base);
+        sm90::fence_proxy_async();
+        bar_arrive(BAR_FULL + (int)((k + 1) & 1), SM90_THREADS);
+        if (k + 2 < n) put_patch(k + 2, v);
+      }
+      bar_sync(BAR_STAGED + (int)(k & 1), SM90_THREADS);
+      store(ws);
+      walk_next(p, ws);
+      bar_arrive(BAR_FREE + (int)(k & 1), SM90_THREADS);
+      bar_sync(BAR_STEP, PRODUCERS);           // patch k + 2 staged, patch k + 1 read
+    }
+    bar_sync(BAR_DONE + (int)((n - 1) & 1), SM90_THREADS);
+  } else {
+    // ---- warpgroups 0 and 1: conv2, output row oy + wg of each tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    // Accumulator 4 c + 2 h + e: channel ch + 8 h of pixel 8 c + pxq + e.
+    const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+    const int ch = warp * 16 + (lane >> 2);
+    const int pxq = (lane & 3) * 2;
+    float bias[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) bias[h] = ch + 8 * h < p.C ? p.b2[ch + 8 * h] : 0.f;
+    float acc[STW / 2];
+    long long base = 0;                        // tile k's first ring row
+    Walk w = walk_at(p, lo);
+#pragma unroll 1
+    for (long long k = 0; k < n; ++k) {
+      if (k > 0) {
+        walk_next(p, w);
+        base += w.r == 0 ? 4 : 2;
+      }
+      bar_sync(BAR_FULL + (int)(k & 1), SM90_THREADS);   // tile k's rows are computed
+#pragma unroll
+      for (int i = 0; i < STW / 2; ++i) acc[i] = 0.f;
+      const uint32_t rows[3] = {sb + ring_row(base + wg), sb + ring_row(base + wg + 1),
+                                sb + ring_row(base + wg + 2)};
+      sm90::wgmma_fence();
+      sm90::fence_acc(acc);
+      sm90::strip_mma(acc, sb, rows);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+      bar_arrive(BAR_DONE + (int)(k & 1), SM90_THREADS);
+      if (k > 0) bar_sync(BAR_FREE + (int)((k - 1) & 1), SM90_THREADS);   // tile k-1 stored
+
+      // Tile k's outputs into the staging buffer: + b2, ReLU, the skip
+      // (pixel-major rows), and each pool window's column max (pixels 8 c +
+      // pxq, + 1).
+#pragma unroll
+      for (int c = 0; c < STW / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = __fadd_rn(acc[4 * c + 2 * h + e], bias[h]);
+            v[e] = a < 0.f ? 0.f : a;          // ReLU; keeps a NaN, as jnp.maximum
+            unsigned char* q = stage + (wg * STW + 8 * c + pxq + e) * LDS + (ch + 8 * h) * SB;
+            if constexpr (SKIP_I8) {
+              // rint (half to even) and the clamp to [0, 127] in one convert:
+              // v >= 0, or NaN, which converts to 0 as the clamp made it
+              int r;
+              asm("cvt.rni.sat.s8.f32 %0, %1;\n" : "=r"(r) : "f"(__fmul_rn(v[e], p.inv_skip)));
+              *reinterpret_cast<int8_t*>(q) = (int8_t)r;
+            } else {
+              *reinterpret_cast<__nv_bfloat16*>(q) = __float2bfloat16(v[e]);
+            }
+          }
+          *reinterpret_cast<__nv_bfloat16*>(stage + POOL + (wg * PTW + 4 * c + (lane & 3)) * LDP +
+                                            (ch + 8 * h) * 2) = __float2bfloat16(fmaxf(v[0], v[1]));
+        }
+      bar_arrive(BAR_STAGED + (int)(k & 1), SM90_THREADS);
+    }
+    bar_sync(BAR_FREE + (int)((n - 1) & 1), SM90_THREADS);
+  }
+}
+
+template <typename TX, bool SKIP_I8>
+int launch_sm90(const Chain& p, int sms, cudaStream_t s) {
+  auto kernel = enc0_chain_sm90_kernel<TX, SKIP_I8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SM90_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = p.tiles < sms ? p.tiles : sms;
+  kernel<<<(unsigned)blocks, SM90_THREADS, SM90_SMEM, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound from Python with ctypes: launches on `stream`,
@@ -350,4 +740,44 @@ extern "C" int enc0_chain(const void* x, const void* w1, const void* b1, const v
                    : launch<uint16_t, false>(x, w1, b1, w2t, b2, skip, pooled, g, smem, s);
   return skip_i8 ? launch<float, true>(x, w1, b1, w2t, b2, skip, pooled, g, smem, s)
                  : launch<float, false>(x, w1, b1, w2t, b2, skip, pooled, g, smem, s);
+}
+
+// The sm90 route: the same arguments, w2 K-major [C, 9, C] bf16 (16-byte
+// aligned, as w1 and b1), plus the walk that ops/fused_level0.py::enc0_plan
+// computed (tiles, tiles_c, tiles_img; refused unless it is this entry's)
+// and the card's `sms`, one persistent block per SM.
+extern "C" int enc0_chain_sm90(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* skip, void* pooled, int batch, int H,
+                               int W, int C, int x_bf16, int skip_i8, float inv_skip,
+                               long long tiles, int tiles_c, int tiles_img, int sms,
+                               void* stream) {
+  if (batch < 1 || H < 6 || W < 6 || (H - 4) % 2 || (W - 4) % 2 || C < 8 || C % 8 ||
+      C > MAX_C || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Chain p;
+  p.x = x;
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const __nv_bfloat16*>(w2);
+  p.b2 = static_cast<const float*>(b2);
+  p.skip = skip;
+  p.pooled = static_cast<uint16_t*>(pooled);
+  p.H = H;
+  p.W = W;
+  p.Ho = H - 4;
+  p.Wo = W - 4;
+  p.C = C;
+  p.inv_skip = inv_skip;
+  const long long tc = (p.Wo + sm90::STRIP_TW - 1) / sm90::STRIP_TW;
+  const long long ti = (long long)(p.Ho / 2) * tc;
+  if (tiles_c != tc || tiles_img != ti || tiles != (long long)batch * ti)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles = tiles;
+  p.tiles_c = tiles_c;
+  p.tiles_img = tiles_img;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return skip_i8 ? launch_sm90<uint16_t, true>(p, sms, s)
+                   : launch_sm90<uint16_t, false>(p, sms, s);
+  return skip_i8 ? launch_sm90<float, true>(p, sms, s) : launch_sm90<float, false>(p, sms, s);
 }

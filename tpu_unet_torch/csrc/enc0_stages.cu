@@ -26,8 +26,13 @@
 // 2 bytes read and 4 (f32) or 2 (bf16) written: 0.385 ms of bf16 tensor-core
 // work against 0.59 ms (f32 out) or 0.40 ms (bf16 out) of traffic, so bytes
 // bound it too, barely. The designs:
-//   * conv1: a thread owns 8 output channels of one pixel (one 16-byte
-//     store); neighbouring threads share the pixel's 9 inputs through L1;
+//   * conv1: the conv1 producer of enc0_conv1.cuh, which K4's sm90 route
+//     runs too: a thread owns one group of 8 output channels and a run of
+//     16 adjacent pixels of one output row (9-tap slab: of the flat pixel
+//     order), loads its 72 weights and 8 biases once into registers, reads
+//     the run's three input rows once (18 values each) and stores one
+//     16-byte chunk per pixel; adjacent lanes take adjacent channel groups,
+//     so 8 lanes (C = 64) store one whole 128-byte pixel row;
 //   * conv2: the strip loop of conv3x3_sm90.cuh (K1's bf16 route takes it
 //     at enc0_conv2 and dec0_conv2) with the f32 or ReLU -> bf16 epilogue:
 //     persistent blocks, the 9 x 64 x 64 weights resident in shared
@@ -36,11 +41,10 @@
 //     copied once, a ring of 3 strips with 2 in flight under the current
 //     tile's 72 wgmma m64n88k16 (channels x pixels: fewer shared-memory
 //     operand bytes per flop than m64n64), and 16-byte stores through a
-//     transposed staging tile. So each input row is read twice (the second time mostly from
-//     L2, by the tile below) instead of 9 times, and the output written
-//     once. The f32 sums are the wgmma's, no longer K4's mma.sync loop
-//     (csrc/enc0_chain.cu), so the staged chain may differ from K4 in the
-//     last bit;
+//     transposed staging tile. So each input row is read twice (the second
+//     time mostly from L2, by the tile below) instead of 9 times, and the
+//     output written once. Its MMA step (`strip_mma`) is the one K4's sm90
+//     route issues, so the staged chain's f32 sums equal K4's;
 //   * pool/quantize: a thread owns 8 channels of one 2x2 window: it reads
 //     the window once (16- or 32-byte loads) and writes the four skip values
 //     and the pooled value.
@@ -51,6 +55,7 @@
 #include <stdint.h>
 
 #include "conv3x3_sm90.cuh"
+#include "enc0_conv1.cuh"
 
 namespace {
 
@@ -61,71 +66,71 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }  // keeps a NaN
-
-template <typename TX> __device__ __forceinline__ float load_x(const TX* p);
-template <> __device__ __forceinline__ float load_x<float>(const float* p) { return *p; }
-template <> __device__ __forceinline__ float load_x<uint16_t>(const uint16_t* p) {
-  return bf16_bits_to_float(*p);
-}
+using enc0::pack_bf16x2;
 
 // ---- conv1 -----------------------------------------------------------------
-// TAPS false: x [B, H, W] (f32 or bf16 bits), out [B, H-2, W-2, C].
-// TAPS true:  x [B, R, Q, 9] f32, out [B, R, Q, C].
-// w9 f32 [9, C], b f32 [C]; out bf16 bits. C % 8 == 0.
-template <typename TX, bool TAPS>
+// The conv1 producer of enc0_conv1.cuh, one run of RUN1 pixels (of two
+// output rows, from a 2D image) per thread, two blocks per SM (16 warps:
+// more warps in flight than registers for one block allow).
+// w9 f32 [9, C], b f32 [C] (16-byte aligned); out bf16 bits. C % 8 == 0.
+constexpr int RUN1 = 16;
+
+// x [B, H, W] (f32 or bf16 bits) -> out [B, Ho, Wo, C]: thread t takes
+// channel group t % (C/8) of run (t / (C/8)) % runs of output rows 2 q and
+// 2 q + 1 (q = t / (C/8 * runs), counted over the images' row pairs), runs
+// = ceil(Wo / RUN1); a row's last run is cut at Wo, an odd Ho's last pair
+// at its first row.
+template <typename TX>
+__global__ void __launch_bounds__(THREADS, 2)
+conv1_image_kernel(const TX* __restrict__ x, const float* __restrict__ w9,
+                   const float* __restrict__ b, uint16_t* __restrict__ out, int H, int W,
+                   int Ho, int Wo, int C, int runs, long long items) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= items) return;
+  const int groups = C / 8, pairs = (Ho + 1) / 2;
+  const long long r = t / groups;
+  const int c0 = (int)(t - r * groups) * 8;
+  const long long q = r / runs;                // b * pairs + oy / 2
+  const int ox0 = (int)(r - q * runs) * RUN1;
+  const long long bi = q / pairs;
+  const int oy = (int)(q - bi * pairs) * 2;
+  enc0::Conv1Group g;
+  enc0::load_group(g, w9, b, C, c0);
+  uint16_t* o = out + ((bi * Ho + oy) * Wo + ox0) * C + c0;
+  const int inside = Wo - ox0, rows = Ho - oy;   // pixels of the run, output rows of the pair
+  const TX* xr = x + (bi * H + oy) * W + ox0;
+  const int xrows = rows < 2 ? 3 : 4, cols = W - ox0;
+  enc0::conv1_rows<RUN1, 2>(
+      g,
+      [&](int r, int j) { return r < xrows && j < cols ? enc0::load_x<TX>(xr + r * W + j) : 0.f; },
+      [&](int rr, int i, uint4 v) {
+        if (i < inside && rr < rows)
+          *reinterpret_cast<uint4*>(o + ((long long)rr * Wo + i) * C) = v;
+      });
+}
+
+// x [P, 9] f32 (the 9-tap slab, P = B*R*Q pixels) -> out [P, C]: thread t
+// takes channel group t % (C/8) of pixels RUN1 (t / (C/8)) .. + RUN1 - 1 of
+// the flat pixel order, across row and image ends.
 __global__ void __launch_bounds__(THREADS)
-conv1_kernel(const TX* __restrict__ x, const float* __restrict__ w9,
-             const float* __restrict__ b, uint16_t* __restrict__ out, int H, int W,
-             int Ho, int Wo, int C, long long items) {
+conv1_taps_kernel(const float* __restrict__ x, const float* __restrict__ w9,
+                  const float* __restrict__ b, uint16_t* __restrict__ out, int C,
+                  long long pixels, long long items) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= items) return;
   const int groups = C / 8;
-  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < items;
-       t += (long long)gridDim.x * THREADS) {
-    const long long p = t / groups;
-    const int c0 = (int)(t - p * groups) * 8;
-    float acc[8];
+  const long long r = t / groups;
+  const int c0 = (int)(t - r * groups) * 8;
+  enc0::Conv1Group g;
+  enc0::load_group(g, w9, b, C, c0);
+#pragma unroll 4
+  for (int i = 0; i < RUN1; ++i) {
+    const long long px = r * RUN1 + i;
+    if (px >= pixels) break;
+    float xw[9];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-    const TX* xp;
-    if (TAPS) {
-      xp = x + p * 9;
-    } else {
-      const long long hw = (long long)Ho * Wo;
-      const long long bi = p / hw;
-      const int rem = (int)(p - bi * hw);
-      const int oy = rem / Wo, ox = rem - (rem / Wo) * Wo;
-      xp = x + (bi * H + oy) * W + ox;
-    }
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float v = TAPS ? load_x<TX>(xp + tap) : load_x<TX>(xp + (tap / 3) * W + tap % 3);
-      const float4 wa = __ldg(reinterpret_cast<const float4*>(w9 + tap * C + c0));
-      const float4 wb = __ldg(reinterpret_cast<const float4*>(w9 + tap * C + c0 + 4));
-      acc[0] = fmaf(v, wa.x, acc[0]);
-      acc[1] = fmaf(v, wa.y, acc[1]);
-      acc[2] = fmaf(v, wa.z, acc[2]);
-      acc[3] = fmaf(v, wa.w, acc[3]);
-      acc[4] = fmaf(v, wb.x, acc[4]);
-      acc[5] = fmaf(v, wb.y, acc[5]);
-      acc[6] = fmaf(v, wb.z, acc[6]);
-      acc[7] = fmaf(v, wb.w, acc[7]);
-    }
-    const float4 ba = __ldg(reinterpret_cast<const float4*>(b + c0));
-    const float4 bb = __ldg(reinterpret_cast<const float4*>(b + c0 + 4));
-    const float bias[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = relu(__fadd_rn(acc[k], bias[k]));
-    uint4 o;
-    o.x = pack_bf16x2(acc[0], acc[1]);
-    o.y = pack_bf16x2(acc[2], acc[3]);
-    o.z = pack_bf16x2(acc[4], acc[5]);
-    o.w = pack_bf16x2(acc[6], acc[7]);
-    *reinterpret_cast<uint4*>(out + p * C + c0) = o;
+    for (int tap = 0; tap < 9; ++tap) xw[tap] = __ldg(x + px * 9 + tap);
+    *reinterpret_cast<uint4*>(out + px * C + c0) = enc0::conv1_chunk(g, xw);
   }
 }
 
@@ -230,23 +235,31 @@ extern "C" int enc0_conv1_stage(const void* x, const void* w9, const void* b, vo
   if (batch < 1 || C < 8 || C % 8 || (taps && x_bf16) || (taps ? (H < 1 || W < 1)
                                                                : (H < 3 || W < 3)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Ho = taps ? H : H - 2, Wo = taps ? W : W - 2;
-  const long long items = (long long)batch * Ho * Wo * (C / 8);
-  int blocks = 0;
-  if (int rc = grid_for(items, &blocks)) return rc;
+  const int groups = C / 8;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wp = static_cast<const float*>(w9);
   const float* bp = static_cast<const float*>(b);
   uint16_t* op = static_cast<uint16_t*>(out);
-  if (taps)
-    conv1_kernel<float, true><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), wp, bp,
-                                                         op, H, W, Ho, Wo, C, items);
-  else if (x_bf16)
-    conv1_kernel<uint16_t, false><<<blocks, THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(x), wp, bp, op, H, W, Ho, Wo, C, items);
-  else
-    conv1_kernel<float, false><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(x), wp,
-                                                          bp, op, H, W, Ho, Wo, C, items);
+  long long items;
+  if (taps) {
+    const long long pixels = (long long)batch * H * W;
+    items = (pixels + RUN1 - 1) / RUN1 * groups;
+    const long long blocks = (items + THREADS - 1) / THREADS;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    conv1_taps_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(static_cast<const float*>(x), wp, bp,
+                                                           op, C, pixels, items);
+  } else {
+    const int Ho = H - 2, Wo = W - 2, runs = (Wo + RUN1 - 1) / RUN1;
+    items = (long long)batch * ((Ho + 1) / 2) * runs * groups;
+    const long long blocks = (items + THREADS - 1) / THREADS;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    if (x_bf16)
+      conv1_image_kernel<uint16_t><<<(unsigned)blocks, THREADS, 0, s>>>(
+          static_cast<const uint16_t*>(x), wp, bp, op, H, W, Ho, Wo, C, runs, items);
+    else
+      conv1_image_kernel<float><<<(unsigned)blocks, THREADS, 0, s>>>(
+          static_cast<const float*>(x), wp, bp, op, H, W, Ho, Wo, C, runs, items);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -138,6 +138,8 @@ def load_library() -> ctypes.CDLL:
         lib.edt_column_pass_f32.restype = i
         lib.enc0_chain.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.enc0_chain.restype = i
+        lib.enc0_chain_sm90.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, ll, i, i, i, p]
+        lib.enc0_chain_sm90.restype = i
         lib.concat_quantize.argtypes = [p, p, p, ll, ll, ll, ll, i, i, i, i, i, i, f, i, p]
         lib.concat_quantize.restype = i
         lib.interleave_copy.argtypes = [i, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p]

@@ -20,13 +20,17 @@ numerics (not those of the unfused composition):
 
 Each wrapper runs its plain version on a CPU tensor; on a CUDA tensor it
 launches its kernel or raises, and counts the launch in
-``<wrapper>.launches``.
+``<wrapper>.launches``. K4 has two routes: ``"sm90"`` (what `enc0_chain`
+takes: the strip loop's wgmma step of ``csrc/conv3x3_sm90.cuh`` fed by the
+conv1 producer of ``csrc/enc0_conv1.cuh``, walking `enc0_plan`'s tiles,
+also counted in ``enc0_chain.sm90_launches``) and ``"simple"`` (the first
+kernel, run only through `_enc0_chain_route_forward`, for comparisons).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +38,21 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.models.unet import _max_pool2
 from tpu_unet_torch.ops import _build
+from tpu_unet_torch.ops.conv_pallas import _sms
 from tpu_unet_torch.ops.conv_tiles import _scalar
+from tpu_unet_torch.ops.enc0_stages import _aligned
 from tpu_unet_torch.ops.interleave import _on_cuda, _packed
 
 _POOL_MODES = ("fused", "cols", "none")
-#: Largest C the K4 kernel takes: its conv2 weights and conv1 tile stay in
+#: Largest C the K4 kernels take: conv2's weights (9 x 64 x 64) stay in
 #: shared memory.
 ENC0_MAX_C = 64
+#: K4's routes: "sm90" (the strip wgmma loop with the conv1 producer, what
+#: `enc0_chain` takes) and "simple" (the first kernel, only when forced).
+ENC0_ROUTES = ("sm90", "simple")
+#: Output rows x columns of a tile of the sm90 route: one pool row pair,
+#: 44 pool windows.
+ENC0_TILE = (2, 88)
 
 
 def _inverse(scale) -> float:
@@ -98,6 +110,108 @@ def enc0_chain_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return skip.contiguous(), _max_pool2(h2).to(torch.bfloat16).contiguous()
 
 
+class Enc0Plan(NamedTuple):
+    """The sm90 route's walk over x [B, H, W, 1]: tiles of ENC0_TILE =
+    (2, 88) output rows x columns, `tiles_c` per tile row, `tiles_img` per
+    image, `tiles` in all (tile t is `enc0_tile(plan, t)`)."""
+    tiles_c: int
+    tiles_img: int
+    tiles: int
+
+
+def enc0_plan(bsz: int, h: int, w: int) -> Enc0Plan:
+    """The walk of K4's sm90 route over x [bsz, h, w, 1]: B * (H-4)/2 *
+    ceil((W-4)/88) tiles. The CUDA entry refuses any other plan, so this is
+    the arithmetic the kernel uses."""
+    ho, wo = h - 4, w - 4
+    if bsz < 1 or ho < 2 or wo < 2 or ho % 2 or wo % 2:
+        raise ValueError(f"enc0_plan needs B >= 1 and H - 4, W - 4 even and positive, got "
+                         f"B {bsz}, H - 4 = {ho}, W - 4 = {wo}")
+    tiles_c = -(-wo // ENC0_TILE[1])
+    tiles_img = ho // ENC0_TILE[0] * tiles_c
+    return Enc0Plan(tiles_c, tiles_img, bsz * tiles_img)
+
+
+def enc0_tile(plan: Enc0Plan, t: int) -> Tuple[int, int, int]:
+    """(image, first output row, first output column) of tile `t`, as the
+    kernel decodes it (`walk_at` in csrc/enc0_chain.cu): row pairs run
+    fastest, then column tiles, then images, so that a block's contiguous
+    range of tiles walks down columns and reuses the h1 rows two vertical
+    neighbours share. The tile's outputs are rows oy, oy + 1 and the columns
+    ox0 .. ox0 + 87 inside the image; its pooled outputs row oy / 2, columns
+    ox0 / 2 .. ox0 / 2 + 43."""
+    b, rem = divmod(t, plan.tiles_img)
+    pairs = plan.tiles_img // plan.tiles_c
+    return b, rem % pairs * ENC0_TILE[0], rem // pairs * ENC0_TILE[1]
+
+
+def enc0_block_tiles(plan: Enc0Plan, blocks: int, i: int) -> range:
+    """The tiles block `i` of a grid of `blocks` walks: a contiguous range,
+    i * tiles // blocks up to (i + 1) * tiles // blocks, as the kernel
+    splits the walk."""
+    return range(i * plan.tiles // blocks, (i + 1) * plan.tiles // blocks)
+
+
+def enc0_chain_route(x: torch.Tensor, c: int) -> str:
+    """The route K4 takes for x [B, H, W, 1] to C channels on the card:
+    ``"sm90"`` wherever the kernels take the shape (C a multiple of 8 up to
+    ENC0_MAX_C, H - 4 and W - 4 even and positive); ValueError elsewhere.
+    ``"simple"``, the first kernel, runs only when forced
+    (`_enc0_chain_route_forward`)."""
+    ho, wo = x.shape[1] - 4, x.shape[2] - 4
+    if c % 8 or not 8 <= c <= ENC0_MAX_C or ho < 2 or wo < 2 or ho % 2 or wo % 2:
+        raise ValueError(f"the enc0_chain kernels take C a multiple of 8 up to {ENC0_MAX_C} "
+                         f"and H - 4, W - 4 even and positive, got C {c}, x "
+                         f"{tuple(x.shape)}")
+    return "sm90"
+
+
+def _enc0_forward(x, w1, b1, w2, b2, skip_scale: float, route: str):
+    """K4 on checked CUDA tensors through `route`."""
+    bsz, h, w, _ = x.shape
+    c = w1.shape[3]
+    enc0_chain_route(x, c)
+    x2 = x[..., 0]
+    if x2.dtype != torch.bfloat16:
+        x2 = x2.float()
+    x2 = x2.contiguous()
+    w1f = _aligned(w1.float().reshape(9, c))
+    b1f, b2f = _aligned(b1.float()), _aligned(b2.float())
+    skip = torch.empty((bsz, h - 4, w - 4, c), device=x.device,
+                       dtype=torch.int8 if skip_scale > 0 else torch.bfloat16)
+    pooled = torch.empty((bsz, (h - 4) // 2, (w - 4) // 2, c), dtype=torch.bfloat16,
+                         device=x.device)
+    common = (int(x2.dtype == torch.bfloat16), int(skip_scale > 0),
+              ctypes.c_float(_inverse(skip_scale) if skip_scale > 0 else 0.0))
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "sm90":
+            # conv2's weights K-major [C, 9, C], as the strip loop reads them
+            w2k = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1).contiguous()
+            plan = enc0_plan(bsz, h, w)
+            rc = lib.enc0_chain_sm90(
+                x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(),
+                skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common, plan.tiles,
+                plan.tiles_c, plan.tiles_img, _sms(x.device), stream)
+        else:
+            cp = -(-c // 16) * 16
+            # conv2's weights as each output channel's K-contiguous row [C, 9, CP]:
+            # tap-major, input channels zero-padded to CP
+            w2t = torch.zeros((c, 9, cp), dtype=torch.bfloat16, device=x.device)
+            w2t[:, :, :c] = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1)
+            rc = lib.enc0_chain(
+                x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+                skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common, stream)
+    if rc != 0:
+        raise RuntimeError(f"enc0_chain launch failed ({route} route): CUDA error {rc} "
+                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, C {c}")
+    enc0_chain.launches += 1
+    if route == "sm90":
+        enc0_chain.sm90_launches += 1
+    return skip, pooled
+
+
 def enc0_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                b2: torch.Tensor, *, block_rows: int = 8, block_cols: int = 256,
                skip_scale: float = 0.0,
@@ -115,43 +229,28 @@ def enc0_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Te
     would pool the quantized skip.
 
     On a CPU tensor: `enc0_chain_plain`. On a CUDA tensor: the Hopper kernel
-    (C a multiple of 8, at most ENC0_MAX_C), counted in
-    ``enc0_chain.launches``."""
+    on the route `enc0_chain_route` gives ("sm90"; C a multiple of 8, at
+    most ENC0_MAX_C), counted in ``enc0_chain.launches`` and
+    ``enc0_chain.sm90_launches``; a refused launch raises RuntimeError."""
     _check_enc0(x, w1, b1, w2, b2, block_rows, block_cols, skip_scale, pool_mode)
     if not _on_cuda("enc0_chain", x, w1, b1, w2, b2):
         return enc0_chain_plain(x, w1, b1, w2, b2, skip_scale)
-    bsz, h, w, _ = x.shape
-    c = w1.shape[3]
-    if c % 8 or c > ENC0_MAX_C:
-        raise ValueError(f"the enc0_chain kernel takes C a multiple of 8 up to "
-                         f"{ENC0_MAX_C}, got {c}")
-    x2 = x[..., 0]
-    if x2.dtype != torch.bfloat16:
-        x2 = x2.float()
-    x2 = x2.contiguous()
-    cp = -(-c // 16) * 16
-    # conv2's weights as each output channel's K-contiguous row [C, 9, CP]:
-    # tap-major, input channels zero-padded to CP
-    w2t = torch.zeros((c, 9, cp), dtype=torch.bfloat16, device=x.device)
-    w2t[:, :, :c] = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1)
-    w1f = w1.float().reshape(9, c).contiguous()
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    skip = torch.empty((bsz, h - 4, w - 4, c), device=x.device,
-                       dtype=torch.int8 if skip_scale > 0 else torch.bfloat16)
-    pooled = torch.empty((bsz, (h - 4) // 2, (w - 4) // 2, c), dtype=torch.bfloat16,
-                         device=x.device)
-    inv = _inverse(skip_scale) if skip_scale > 0 else 0.0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _build.load_library().enc0_chain(
-            x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-            skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c,
-            int(x2.dtype == torch.bfloat16), int(skip_scale > 0), ctypes.c_float(inv), stream)
-    if rc != 0:
-        raise RuntimeError(f"enc0_chain launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, C {c}")
-    enc0_chain.launches += 1
-    return skip, pooled
+    return _enc0_forward(x, w1, b1, w2, b2, skip_scale, enc0_chain_route(x, w1.shape[3]))
+
+
+def _enc0_chain_route_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                              w2: torch.Tensor, b2: torch.Tensor, route: str,
+                              skip_scale: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 through the named route, whatever `enc0_chain_route` would pick:
+    ``"simple"`` runs the first kernel. For timing the two in turns on the
+    card; no path of the model calls it. An unknown route raises
+    ValueError; on a CPU tensor every route runs `enc0_chain_plain`."""
+    if route not in ENC0_ROUTES:
+        raise ValueError(f"no route {route!r}; the routes are {ENC0_ROUTES}")
+    _check_enc0(x, w1, b1, w2, b2, 8, 256, skip_scale, "fused")
+    if not _on_cuda("enc0_chain", x, w1, b1, w2, b2):
+        return enc0_chain_plain(x, w1, b1, w2, b2, skip_scale)
+    return _enc0_forward(x, w1, b1, w2, b2, skip_scale, route)
 
 
 # --- K5 ---------------------------------------------------------------------
@@ -217,6 +316,8 @@ def concat_quantize(a: torch.Tensor, b: torch.Tensor, scale, *,
     return out
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+#: Kernel launches since the count was last set to 0 (CPU calls don't count):
+#: all routes, and K4's sm90 route alone.
 enc0_chain.launches = 0
+enc0_chain.sm90_launches = 0
 concat_quantize.launches = 0

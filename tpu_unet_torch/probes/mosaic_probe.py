@@ -24,7 +24,9 @@ data from a seeded ``torch.Generator``, in the scripts' order:
   against its plain version;
   and the staged chain at K4's serving chunk (bf16 x [16, 572, 572, 1],
   C = 64): conv1 -> conv2 (ReLU, bf16) -> pool + int8 skip at K4's scale,
-  three launches, held against K4 (b2 = 0: the stages have no conv2 bias)
+  three launches, held against K4 (b2 = 0: the stages have no conv2 bias;
+  the pooled maps equal bit for bit, since K4's sm90 route and the conv2
+  stage issue one MMA step on the same h1)
   and timed in turns with K4 and the library level 0 (the production int8
   forward's: two cuDNN convs in TF32 on bf16 values, the quantize and the
   pool).
@@ -302,12 +304,14 @@ def _chunk_section(chunk, gen, device) -> List[dict]:
     share = (d > 0).float().mean().item()
     errs = [d.max().item(), (pooled.float() - k_pooled.float()).abs().max().item()]
     bars = [1.0, _bf16_bar(k_pooled)]
-    bad = any(not e <= b for e, b in zip(errs, bars))
     pooled_equal = bool(torch.equal(pooled, k_pooled))
+    # the conv2 stage and K4 issue one MMA step on the same h1: equal pooled
+    # maps are part of the bar
+    bad = any(not e <= b for e, b in zip(errs, bars)) or not pooled_equal
     del skip, pooled, k_skip, k_pooled, d
     log(f"  staged chain vs K4: int8 skip max|err| {errs[0]:.0f} on a share {share:.3e} "
         f"(bar 1: the stages round h2 to bf16 before the quantize), pooled max|err| "
-        f"{errs[1]:.2e} (bar {bars[1]:.2e}), pooled equal {pooled_equal}"
+        f"{errs[1]:.2e} (bar {bars[1]:.2e}), pooled equal {pooled_equal} (bar: equal)"
         + ("  ** MISMATCH **" if bad else ""))
     times = {k: [] for k in routes}
     for key in list(routes) + list(reversed(routes)):
