@@ -4,7 +4,8 @@
 
 Phases, each printing its own lines:
   1. the device, the kernel build (every source of tpu_unet_torch/csrc, on
-     first use) and the card's name and power limit;
+     first use; every kernel launches through ops/_build.launch) and the
+     card's name and power limit;
   2. K1, the fused 3x3 conv + bias + ReLU, against its plain PyTorch
      version at every conv shape of a 572x572 U-Net tile (bf16; 17 on the
      sm90 wgmma loop, enc0_conv1 on the simple kernel, each launch's route
@@ -21,9 +22,12 @@ Phases, each printing its own lines:
      the simple kernel at the same shape, and cuDNN in bf16, then the plain
      version, beside the bound;
   5. K2, the EDT column pass kernel, against its plain version, bit for bit
-     (tolerance 0, +inf positions equal): the DIC-HeLa weight-map shape
-     [2, 32, 388, 388] with num_valid [5, 0], ragged shapes and an
-     all-+inf plane, banded (40) and exact;
+     (tolerance 0, +inf positions equal), on both routes ("sm90", which
+     column_pass and edt_batch run, and "simple"): the DIC-HeLa weight-map
+     shape [2, 32, 388, 388] with num_valid
+     [5, 0] and with all 64 planes live, ragged shapes, W not a multiple of
+     4, planes whose H*W*4 is not a multiple of 16 and an all-+inf plane,
+     banded (40) and exact;
   6. K1's gradient (its autograd.Function: kernel forward, library-conv
      backward) against autograd through the plain version, at the 18 conv
      shapes (bf16) and at small shapes in f32 with TF32 off;
@@ -34,7 +38,10 @@ Phases, each printing its own lines:
      same weights and batch, whose losses and momentum buffers agree;
   8. training times, with CUDA events: a train step under 'pallas' and
      'xla' (bf16) split into augmentation, weight maps, forward+backward and
-     optimizer, and K2 against its plain version;
+     optimizer, and K2's device time in the profiled step; K2 at
+     [2, 32, 388, 388] with num_valid [5, 0] and all 64 planes live, band
+     40 and exact, routes "simple" and "sm90" in turns, per call and on
+     the device, beside the plain version and the bound;
   9. K3, the fused int8 conv of quantized serving, as routed (the int8
      wgmma loop, "sm90", where it takes the shape) and through the forced
      simple route (the one-stage kernel) against its plain version, bit for
@@ -104,7 +111,10 @@ Phases, each printing its own lines:
      bit (NaN in the same places): the probe's 327,184-point gathers at C 2,
      8 and 128, its row gathers and [4096,128] shapes, ragged C (1, 3, 5), a
      misaligned view, int64, negative and out-of-range indices; its times at
-     C 2 and 128 against torch.index_select and the bound; the gather probe
+     C 2 and 128 against torch.index_select, in turns, per call and on the
+     device, and the bound; the host microseconds of each step of the
+     launch path at C 2 over 10,000 calls, the sequence every wrapper ran
+     before ops/_build.launch against the helper's; the gather probe
      (python -m tpu_unet_torch.probes.gather_probe), every mismatch 0;
  19. the three enc0 stage kernels of the Mosaic probes (conv1, conv2,
      pool/quantize) against their plain versions at the probes' block
@@ -124,7 +134,9 @@ The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
 interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
-enc0_conv2_stage, enc0_pool_quant_stage); the last line is
+enc0_conv2_stage, enc0_pool_quant_stage) and of the end-to-end paths
+timed in turns (float serving, research 'fused', the 'pallas' train step)
+with their device idle shares; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -216,6 +228,7 @@ def phase1_device():
     log(f"phase 1: kernel library {_build.library_path()} "
         f"{'loaded (already built)' if prebuilt else 'built'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    _profile(lambda r: torch.ones(1, device=DEVICE).add_(1), 1)   # the profiler's start-up
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -414,8 +427,16 @@ def phase4_time(cfg, model, xla, data, labels):
     for impl, ts in times.items():
         ms = sum(ts) / len(ts)
         tiles_s[impl] = n_tiles / (ms / 1e3)
+        tiles_s[f"{impl} ms"] = ms
         log(f"phase 4: evaluate_batch conv_impl={impl!r}: {ms:.2f} ms for {n_tiles} "
             f"tiles of {TILE_IN}^2 = {tiles_s[impl]:.1f} tiles/s (runs {ts})")
+    n = 3
+    window, busy, _, _ = _profile(lambda r: engines["pallas"].evaluate_batch(images, lab), n)
+    tiles_s["pallas profiled_idle_share"] = 1.0 - busy / window
+    tiles_s["pallas profiled_busy_ms"] = busy / n
+    log(f"phase 4: profile of {n} evaluate_batch calls conv_impl='pallas': window "
+        f"{window / n:.3f} ms/call, device busy {busy / n:.3f} ms/call, idle share "
+        f"{1.0 - busy / window:.4f}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes, _ = conv_shapes(cfg, TILE_IN)
@@ -470,10 +491,12 @@ def phase4_time(cfg, model, xla, data, labels):
 EDT_BAND = 40
 EDT_SHAPES = [  # (g2 shape, num_valid)
     ((2, 32, 388, 388), [5, 0]),   # the DIC-HeLa weight-map batch
-    ((3, 70, 45), None),           # H, W not multiples of the 64x32 tile
+    ((2, 32, 388, 388), None),     # all 64 planes live (up to 32 objects a crop)
+    ((3, 70, 45), None),           # H, W not multiples of the tiles; W not of 4
     ((2, 30, 100), None),          # H < band
     ((1, 4, 1, 37), [2]),          # one-row planes
     ((1, 5, 300, 97), [5]),
+    ((2, 6, 37, 41), [4, 1]),      # H*W*4 not a multiple of 16: scalar +inf stores
 ]
 # Phase 7's one-step comparison, f32 with TF32 off, 'pallas' vs 'xla': the
 # kernel and cuDNN sum the forward in other orders (~1e-6 relative), so a
@@ -504,27 +527,39 @@ def edt_bound(shape, num_valid, band):
     return bound(4 * (live + b * k) * h * w, 2 * live * w * rows, "f32")
 
 
-def phase5_edt() -> float:
-    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+def _k2_forms():
+    """K2's routes by name: "sm90" (what column_pass runs) and "simple"."""
+    from tpu_unet_torch.ops.edt_pallas import _column_pass_route_forward, column_pass
 
+    return {"sm90": lambda g2, nv, band: column_pass(g2, nv, band),
+            "simple": lambda g2, nv, band: _column_pass_route_forward(g2, nv, band, "simple")}
+
+
+def phase5_edt() -> float:
+    from tpu_unet_torch.ops.edt_pallas import column_pass_plain
+
+    forms = _k2_forms()
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     for shape, nv in EDT_SHAPES:
         g2 = _g2(shape, gen)
         g2.view(-1, *shape[-2:])[0] = float("inf")          # an all-+inf plane
         num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
         for band in (EDT_BAND, None):
-            got = column_pass(g2, num_valid=num, band=band)
             ref = column_pass_plain(g2, num_valid=num, band=band)
-            torch.cuda.synchronize()
-            same_inf = torch.equal(torch.isinf(got), torch.isinf(ref))
             fin = torch.isfinite(ref)
-            err = (got[fin] - ref[fin]).abs().max().item() if fin.any() else 0.0
-            log(f"phase 5: K2 g2{list(shape)} num_valid {nv} band {band}: max|err| "
-                f"{err}, +inf positions equal: {same_inf}, finite share "
-                f"{fin.float().mean().item():.4f}")
-            if not (same_inf and err == 0.0 and torch.equal(got, ref)):
-                raise AssertionError(f"K2 differs from its plain version at {shape}, band {band}")
-    log("phase 5: ok, K2 bit-exact at every shape")
+            for form, fn in forms.items():
+                got = fn(g2, num, band)
+                torch.cuda.synchronize()
+                same_inf = torch.equal(torch.isinf(got), torch.isinf(ref))
+                err = (got[fin] - ref[fin]).abs().max().item() if fin.any() else 0.0
+                log(f"phase 5: K2 {form:8s} g2{list(shape)} num_valid {nv} band {band}: "
+                    f"max|err| {err}, +inf positions equal: {same_inf}, finite share "
+                    f"{fin.float().mean().item():.4f}")
+                if not (same_inf and err == 0.0 and torch.equal(got, ref)):
+                    raise AssertionError(f"K2 {form} differs from its plain version at "
+                                         f"{shape}, band {band}")
+                del got
+    log("phase 5: ok, K2 bit-exact at every shape, both routes")
     return 0.0
 
 
@@ -613,13 +648,15 @@ def phase7_train(cfg):
     trainer = Trainer(ds, cfg, tcfg, out_dir=out)
     n_val = -(-len(data) // tcfg.batch_size)
     n_steps = len(data) // tcfg.batch_size
-    conv3x3_bias_relu.launches = conv3x3_bias_relu.sm90_launches = column_pass.launches = 0
+    conv3x3_bias_relu.launches = conv3x3_bias_relu.sm90_launches = 0
+    column_pass.launches = column_pass.sm90_launches = 0
     t0 = time.perf_counter()
     history = trainer.fit(data, data, epochs=0)
     torch.cuda.synchronize()
     launches = {"conv3x3_bias_relu": conv3x3_bias_relu.launches,
                 "conv3x3_bias_relu_sm90": conv3x3_bias_relu.sm90_launches,
-                "edt_column_pass": column_pass.launches}
+                "edt_column_pass": column_pass.launches,
+                "edt_column_pass_sm90": column_pass.sm90_launches}
     log(f"phase 7: Trainer.fit(epochs=0) on {len(data)} images of 448^2: {n_steps} "
         f"train steps, {n_val} val batches in {time.perf_counter() - t0:.1f} s; "
         f"launches {launches}; history {json.dumps(history)}")
@@ -627,8 +664,10 @@ def phase7_train(cfg):
             or launches["conv3x3_bias_relu_sm90"] != 17 * (n_steps + n_val)):
         raise AssertionError(f"K1 launches {launches}, want 18 x ({n_steps} + {n_val}), "
                              f"17 of each 18 on the sm90 route")
-    if launches["edt_column_pass"] < n_steps:
-        raise AssertionError(f"K2 launches {launches}, want >= {n_steps}")
+    if (launches["edt_column_pass"] < n_steps
+            or launches["edt_column_pass_sm90"] != launches["edt_column_pass"]):
+        raise AssertionError(f"K2 launches {launches}, want >= {n_steps}, all on the sm90 "
+                             f"route")
     if not all(np.isfinite(v) for vals in history.values() for v in vals):
         raise AssertionError(f"non-finite history {history}")
     missing = [f for f in list(FILES.values()) + ["metrics.jsonl"]
@@ -694,7 +733,7 @@ def _events():
 # Kernel-name fragments -> the rows of the train-step breakdown.
 KERNEL_GROUPS = (
     ("K1 conv3x3_bias_relu", ("conv3x3_bias_relu", "sm90::conv3x3_")),
-    ("K2 edt_column_pass", ("edt_column_pass",)),
+    ("K2 edt_column_pass", ("column_pass_kernel",)),
     ("K3 conv3x3_fused", ("conv3x3_fused",)),
     ("K4 enc0_chain", ("enc0_chain",)),
     ("K5 concat_quantize", ("concat_quantize",)),
@@ -774,10 +813,51 @@ def _train_step(model, opt, parts, r, mark=lambda k, i: None):
     mark("optimizer", 1)
 
 
+# K2's routes in the order of its timing turns (then reversed)
+K2_TURNS = ("simple", "sm90")
+
+
+def phase8_k2_routes():
+    """K2 at the weight map's shape [2, 32, 388, 388], with the fixture's
+    num_valid [5, 0] and with all 64 planes live, band 40 and exact: each
+    route in turns, per call (CUDA events over 20 back-to-back
+    calls, which the host's launch work can bound) and on the device (the
+    profiler's kernel time over 20 calls), beside the plain version and the
+    bound."""
+    from tpu_unet_torch.ops.edt_pallas import column_pass_plain
+
+    forms = _k2_forms()
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    shape = (2, 32, TILE_OUT, TILE_OUT)
+    g2 = _g2(shape, gen)
+    edt_ms = {}
+    for label, nv in (("num_valid [5, 0]", [5, 0]), ("all 64 planes live", None)):
+        num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
+        for band in (EDT_BAND, None):
+            per_call, device = {f: [] for f in K2_TURNS}, {f: [] for f in K2_TURNS}
+            for form in K2_TURNS + K2_TURNS[::-1]:
+                fn = forms[form]
+                per_call[form].append(time_ms(lambda: fn(g2, num, band), DEVICE, 20))
+                device[form].append(_profile(lambda r: fn(g2, num, band), 20)[1] / 20)
+            t = {"per_call": {f: sum(v) / len(v) for f, v in per_call.items()},
+                 "device": {f: sum(v) / len(v) for f, v in device.items()},
+                 "plain": time_ms(lambda: column_pass_plain(g2, num, band), DEVICE, 3)}
+            t["bound"], t["bound_by"] = edt_bound(shape, nv, band)
+            edt_ms[f"{label}, band {band}"] = t
+            log(f"phase 8: K2 g2{list(shape)} {label}, band {band}, in turns: per call "
+                + ", ".join(f"{f} {v:.4f}" for f, v in t["per_call"].items())
+                + " ms; on the device "
+                + ", ".join(f"{f} {v:.4f}" for f, v in t["device"].items())
+                + f" ms; plain {t['plain']:.3f} ms, bound {t['bound']:.4f} ms "
+                f"({t['bound_by']}); sm90 at "
+                f"{t['bound'] / t['device']['sm90']:.1%} of the bound on the device, "
+                f"{t['device']['simple'] / t['device']['sm90']:.2f}x faster than simple")
+    return edt_ms
+
+
 def phase8_time(cfg):
     from tpu_unet_torch.config import OptimConfig
     from tpu_unet_torch.models import UNet
-    from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
     from tpu_unet_torch.train import make_optimizer
 
     parts_in = _train_parts()
@@ -815,6 +895,8 @@ def phase8_time(cfg):
         n = 3
         window, busy, groups, top = _profile(lambda r: train_step(impl, r), n)
         step_ms[impl]["profiled_idle_share"] = 1.0 - busy / window
+        step_ms[impl]["profiled_busy_ms"] = busy / n
+        step_ms[impl]["profiled_k2_group_ms"] = groups["K2 edt_column_pass"] / n
         log(f"phase 8: profile of {n} steps conv_impl={impl!r}: window {window / n:.3f} "
             f"ms/step, device busy {busy / n:.3f} ms/step, idle share "
             f"{1.0 - busy / window:.4f}; by group (ms/step): "
@@ -823,17 +905,9 @@ def phase8_time(cfg):
             log(f"phase 8:   {ms / n:9.3f} ms/step  {name[:110]}")
     del models
 
-    gen = torch.Generator(device=DEVICE).manual_seed(8)
-    g2 = _g2((2, 32, TILE_OUT, TILE_OUT), gen)
-    edt_ms = {}
-    for label, nv in (("num_valid [5, 0]", [5, 0]), ("all 64 planes live", None)):
-        num = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=DEVICE)
-        for band in (EDT_BAND, None):
-            t = {"kernel": time_ms(lambda: column_pass(g2, num, band), DEVICE, 20),
-                 "plain": time_ms(lambda: column_pass_plain(g2, num, band), DEVICE, 3)}
-            edt_ms[f"{label}, band {band}"] = t
-            log(f"phase 8: K2 g2[2,32,{TILE_OUT},{TILE_OUT}] {label}, band {band}: "
-                f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms")
+    log(f"phase 8: K2 in the profiled 'pallas' train step (DIC-HeLa fixture, 5 cells per "
+        f"image): {step_ms['pallas']['profiled_k2_group_ms']:.4f} ms/step on the device")
+    edt_ms = phase8_k2_routes()
     return step_ms, edt_ms
 
 
@@ -1584,6 +1658,7 @@ def phase14_time_research(model, data, qp):
     for key, ts in times.items():
         ms = sum(ts) / len(ts)
         tiles_s[key] = n_tiles / (ms / 1e3)
+        tiles_s[f"{key} ms"] = ms
         log(f"phase 14: evaluate_batch {key}: {ms:.2f} ms for {n_tiles} tiles of "
             f"{TILE_IN}^2 = {tiles_s[key]:.1f} tiles/s (runs {[round(t, 3) for t in ts]})")
     n = 3
@@ -1960,6 +2035,9 @@ def phase17_time_phase(cfg, model, data, qp, qp_phase):
 # The last probes (phases 18-19): the gather probe's warp canvas and the
 # enc0 chain's stage kernels at K4's serving chunk.
 GATHER_S = 572
+# calls per timing turn of the row gather: a call at C 2 is a few µs of
+# device work behind ~15-20 µs of host work, whose jitter a short run shows
+GATHER_REPS = 200
 ENC0_C = 64
 
 
@@ -1986,6 +2064,111 @@ def _exact(got, ref) -> float:
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
     ok = torch.isfinite(ref)
     return (got[ok] - ref[ok]).abs().max().item() if ok.any() else 0.0
+
+
+LAUNCH_PATH_CALLS = 10_000
+
+
+def _us_per_call(fn, n: int = LAUNCH_PATH_CALLS) -> float:
+    """Host microseconds per call of `fn` over `n` calls (perf_counter_ns)."""
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_path(gather, src, idx):
+    """Host microseconds per call of each step of the row gather's launch
+    path at `src`, `idx`, over 10,000 calls: the sequence every wrapper ran
+    before the launch helper (rebuilt here only to time it: a device
+    context, a `torch.cuda.Stream` object, the library behind its lock) and
+    the helper's, then both whole wrappers."""
+    import threading
+
+    from tpu_unet_torch.ops import _build
+
+    lib = _build.load_library()
+    fn = lib.row_gather_f32
+    dev = src.device
+    n, c = src.shape
+    out = torch.empty((idx.shape[0], c), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (src.data_ptr(), idx.data_ptr(), 0, out.data_ptr(), n, idx.shape[0], c,
+            src.stride(0), 0)
+    lock = threading.Lock()
+
+    def locked_library():
+        with lock:
+            return _build._lib
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def old_on_cuda(*ts):
+        d = ts[0].device
+        if any(t.device != d for t in ts) or d.type not in ("cpu", "cuda"):
+            raise AssertionError(d)
+        return d.type == "cuda"
+
+    def checks(on_cuda):
+        gather._check(src, idx)
+        on_cuda(src, idx)
+        if src.stride(1) != 1 or src.stride(0) < c:
+            raise AssertionError
+        idx.contiguous()
+
+    def arguments():
+        return (src.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), out.data_ptr(),
+                int(c % 4 == 0 and src.stride(0) % 4 == 0 and src.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0))
+
+    def old_wrapper():
+        checks(old_on_cuda)
+        o = torch.empty((idx.shape[0], c), dtype=torch.float32, device=dev)
+        a = arguments()
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream(dev).cuda_stream
+            rc = locked_library().row_gather_f32(a[0], a[1], a[2], o.data_ptr(), n,
+                                                 idx.shape[0], c, src.stride(0), a[4], st)
+        if rc != 0:
+            raise RuntimeError(rc)
+        return o
+
+    steps = {
+        "old": {
+            "argument checks": lambda: checks(old_on_cuda),
+            "torch.empty": lambda: torch.empty((idx.shape[0], c), dtype=torch.float32,
+                                               device=dev),
+            "pointers and flags": arguments,
+            "enter and leave torch.cuda.device": device_context,
+            "current_stream(...).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "load_library() behind its lock": locked_library,
+            "ctypes call (launches the kernel)": lambda: fn(*args, stream),
+            "whole wrapper": old_wrapper},
+        "new": {
+            "argument checks": lambda: checks(lambda *ts: gather._on_cuda("row_gather", *ts)),
+            "src.new_empty": lambda: src.new_empty((idx.shape[0], c)),
+            "pointers and flags": arguments,
+            "current device (torch._C._cuda_getDevice)": _build._current_device,
+            "raw stream (torch._C._cuda_getCurrentRawStream)":
+                lambda: _build._raw_stream(dev.index),
+            "load_library() without the lock": _build.load_library,
+            "_build.launch (launches the kernel)": lambda: _build.launch(
+                "row_gather", fn, dev.index, *args, shapes=(("src", src), ("idx", idx))),
+            "whole wrapper (ops.gather.row_gather)": lambda: gather.row_gather(src, idx)},
+    }
+    us = {}
+    for path in ("old", "new", "new", "old"):                      # in turns
+        for step, f in steps[path].items():
+            us.setdefault(path, {}).setdefault(step, []).append(_us_per_call(f))
+    us = {path: {k: sum(v) / len(v) for k, v in d.items()} for path, d in us.items()}
+    for path, d in us.items():
+        log(f"phase 18: launch path ({path}), host us per call over {LAUNCH_PATH_CALLS} calls "
+            f"at src {list(src.shape)}: " + ", ".join(f"{k} {v:.2f}" for k, v in d.items()))
+    return us
 
 
 @torch.inference_mode()
@@ -2039,20 +2222,27 @@ def phase18_gather():
     times = {}
     for c in (2, 128):
         src = rand(n_pts, c)
-        t = {"kernel": time_ms(lambda: gather.row_gather(src, idx), DEVICE, 20),
-             "plain": time_ms(lambda: gather.row_gather_plain(src, idx), DEVICE, 5),
-             "library": time_ms(lambda: torch.index_select(src, 0, idx), DEVICE, 20)}
+        fns = {"kernel": lambda: gather.row_gather(src, idx),
+               "library": lambda: torch.index_select(src, 0, idx)}
+        runs = {k: [] for k in fns}
+        device = {k: [] for k in fns}
+        for key in ("kernel", "library", "library", "kernel"):        # in turns
+            runs[key].append(time_ms(fns[key], DEVICE, GATHER_REPS))
+            # a call this small can be bound by the host: the device's own
+            # time per call, from the profiler
+            device[key].append(_profile(lambda r: fns[key](), 20)[1] / 20)
+        t = {k: sum(v) / len(v) for k, v in runs.items()}
+        t.update({f"{k}_device": sum(v) / len(v) for k, v in device.items()})
+        t["plain"] = time_ms(lambda: gather.row_gather_plain(src, idx), DEVICE, 5)
         t["bound"], t["bound_by"] = bound(*gather_cost(src, idx), "f32")
-        # a call this small can be bound by the host: the device's own time
-        # per call, from the profiler
-        for key, fn in (("kernel", lambda: gather.row_gather(src, idx)),
-                        ("library", lambda: torch.index_select(src, 0, idx))):
-            t[f"{key}_device"] = _profile(lambda r: fn(), 20)[1] / 20
+        t["runs"] = runs
         times[f"C {c}"] = t
-        log(f"phase 18: row_gather {n_pts} points of C {c}: kernel {t['kernel']:.4f} ms "
-            f"per call ({t['kernel_device']:.4f} ms on the device), torch.index_select "
-            f"{t['library']:.4f} ms ({t['library_device']:.4f}), plain {t['plain']:.4f} ms, "
-            f"bound {t['bound']:.4f} ms ({t['bound_by']})")
+        log(f"phase 18: row_gather {n_pts} points of C {c}, in turns: kernel "
+            f"{t['kernel']:.4f} ms per call ({t['kernel_device']:.4f} ms on the device), "
+            f"torch.index_select {t['library']:.4f} ms ({t['library_device']:.4f}), plain "
+            f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']}); runs {runs}")
+        if c == 2:
+            times["launch_path_us"] = launch_path(gather, src, idx)
         del src
     del cases, img, srcp, buf
     torch.cuda.empty_cache()
@@ -2338,6 +2528,23 @@ def _by_route(launches, name):
             "simple": launches[name] - launches[f"{name}_sm90"]}
 
 
+def end_to_end(tiles_s, research_tiles_s, step_ms):
+    """The three end-to-end paths this script times in turns (recorded, no
+    claim), each with its device's idle share: 1 - the profiler's device
+    busy time per call over the call's time with CUDA events, unprofiled
+    (the profiler's own window also holds its host overhead)."""
+    float_ms, fused_ms = tiles_s["pallas ms"], research_tiles_s["research fused ms"]
+    fused_busy = research_tiles_s["research fused profiled_ms_per_call"]["device_busy"]
+    return {
+        "float_serving_pallas": {"tiles_per_s": tiles_s["pallas"], "ms": float_ms,
+                                 "idle_share": 1.0 - tiles_s["pallas profiled_busy_ms"] / float_ms},
+        "research_fused": {"tiles_per_s": research_tiles_s["research fused"], "ms": fused_ms,
+                           "idle_share": 1.0 - fused_busy / fused_ms},
+        "train_step_pallas": {"ms": step_ms["pallas"]["step"],
+                              "idle_share": 1.0 - step_ms["pallas"]["profiled_busy_ms"]
+                              / step_ms["pallas"]["step"]}}
+
+
 def main() -> None:
     phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -2370,7 +2577,7 @@ def main() -> None:
     gather_err, gather_ms, gather_probe, gather_launches = phase18_gather()
     stage_errs, stage_ms, mosaic_probe, stage_launches = phase19_enc0_stages()
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
-    k2_bound_ms, k2_by = edt_bound((2, 32, TILE_OUT, TILE_OUT), [5, 0], EDT_BAND)
+    live_key = f"all 64 planes live, band {EDT_BAND}"
     # the two JSON lines are printed bare (no time stamp), to be parsed whole
     print(json.dumps({"kernels": [{
         "name": "conv3x3_bias_relu",
@@ -2408,13 +2615,23 @@ def main() -> None:
         "replaces": "tpu_unet/ops/edt_pallas.py:102",
         "launches": launches["edt_column_pass"],
         "max_abs_err": edt_err,
-        "ms": edt_ms[band_key]["kernel"],
+        "ms": edt_ms[band_key]["per_call"]["sm90"],
         "plain_ms": edt_ms[band_key]["plain"],
-        "bound_ms": k2_bound_ms,
-        "bound_by": k2_by,
+        "bound_ms": edt_ms[band_key]["bound"],
+        "bound_by": edt_ms[band_key]["bound_by"],
         "library_ms": None,
+        "device_ms": edt_ms[band_key]["device"]["sm90"],
+        "all_live": {k: edt_ms[live_key][k] for k in ("bound", "bound_by")}
+        | {"device_ms": edt_ms[live_key]["device"]["sm90"],
+           "ms": edt_ms[live_key]["per_call"]["sm90"]},
+        "routes": {"sm90": "column_pass (edt_batch)",
+                   "simple": "_column_pass_route_forward only"},
         "launches_by_path": {"train": launches["edt_column_pass"]},
+        "launches_by_route": {"train": {"sm90": launches["edt_column_pass_sm90"],
+                                        "simple": launches["edt_column_pass"]
+                                        - launches["edt_column_pass_sm90"]}},
         "ms_by_case": edt_ms,
+        "train_step_device_ms": step_ms["pallas"]["profiled_k2_group_ms"],
     }, {
         "name": "conv3x3_fused",
         "route": "cuda",
@@ -2480,6 +2697,8 @@ def main() -> None:
         "bound_by": gather_ms["C 2"]["bound_by"],
         "library_ms": gather_ms["C 2"]["library"],
         "launches_by_path": {"gather_probe": gather_launches},
+        "device_ms": gather_ms["C 2"]["kernel_device"],
+        "library_device_ms": gather_ms["C 2"]["library_device"],
         "shape": f"{GATHER_S ** 2} rows of C 2 from [{GATHER_S ** 2}, 2]",
         "ms_by_case": gather_ms,
         "probe": [{k: r[k] for k in ("section", "label", "route", "ms")} for r in gather_probe],
@@ -2487,6 +2706,7 @@ def main() -> None:
         "enc0_chain_at_chunk_ms": stage_ms["chain"],
         "staged_chain_pooled_equal_k4": stage_ms["staged_pooled_equal_k4"],
         "mosaic_probe": [{k: r[k] for k in ("section", "name", "ms")} for r in mosaic_probe],
+        "end_to_end": end_to_end(tiles_s, research_tiles_s, step_ms),
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
         "phase_level0_train_step_ms": phase_train_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,10 @@ from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3
                                            conv3x3_fused_plain, conv3x3_fused_route,
                                            conv3x3_int8_xla)
 from tpu_unet_torch.ops import enc0_stages as st
-from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+from tpu_unet_torch.ops import edt_pallas
+from tpu_unet_torch.ops.edt import edt_batch
+from tpu_unet_torch.ops.edt_pallas import (_column_pass_route_forward, column_pass,
+                                           column_pass_plain)
 from tpu_unet_torch.ops.fused_level0 import (_enc0_chain_route_forward, _inverse,
                                              concat_quantize, concat_quantize_plain, enc0_chain,
                                              enc0_chain_plain, enc0_chain_route)
@@ -254,25 +257,58 @@ def _g2(shape, seed, device):
     return _squared(_row_distance(masks)).contiguous()
 
 
+# K2's routes: "sm90" (what column_pass runs) and "simple" (the first kernel)
+K2_FORMS = {
+    "sm90": lambda g2, nv, band: column_pass(g2, num_valid=nv, band=band),
+    "simple": lambda g2, nv, band: _column_pass_route_forward(g2, nv, band, "simple"),
+}
+
+
 @pytest.mark.parametrize("shape,num_valid", [
     ((2, 32, 388, 388), [5, 0]),
-    ((3, 70, 45), None),          # H, W not multiples of the tile
+    ((2, 32, 388, 388), None),    # all 64 planes live
+    ((3, 70, 45), None),          # H, W not multiples of the tile; W not of 4
     ((2, 30, 100), None),         # H < band
     ((1, 4, 1, 37), [2]),         # one-row planes
     ((5, 64, 33), 3),
+    ((2, 6, 37, 41), [4, 1]),     # H*W*4 not a multiple of 16: scalar +inf stores
 ])
 @pytest.mark.parametrize("band", [40, None])
-def test_column_pass_kernel_is_bit_exact(cuda, shape, num_valid, band):
+@pytest.mark.parametrize("form", list(K2_FORMS))
+def test_column_pass_kernel_is_bit_exact(cuda, shape, num_valid, band, form):
     g2 = _g2(shape, 0, cuda)
     g2.view(-1, *shape[-2:])[0] = float("inf")   # an all-+inf plane
     if isinstance(num_valid, list):
         num_valid = torch.tensor(num_valid, dtype=torch.int32, device=cuda)
-    before = column_pass.launches
-    got = column_pass(g2, num_valid=num_valid, band=band)
-    assert column_pass.launches == before + 1
+    before = column_pass.launches, column_pass.sm90_launches
+    got = K2_FORMS[form](g2, num_valid, band)
+    sm90 = int(form != "simple")
+    assert (column_pass.launches, column_pass.sm90_launches) == (before[0] + 1,
+                                                                 before[1] + sm90)
     ref = column_pass_plain(g2, num_valid=num_valid, band=band)
     torch.cuda.synchronize()
     assert torch.equal(torch.isinf(got), torch.isinf(ref))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("band", [40, None])
+def test_edt_batch_runs_the_sm90_route(cuda, band, monkeypatch):
+    """edt_batch's column pass takes route "sm90", and its distances equal
+    those of the plain column pass."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    masks = torch.rand((2, 6, 60, 50), generator=g, device=cuda) < 0.01
+    nv = torch.tensor([6, 2], dtype=torch.int32, device=cuda)
+    routes = []
+    launch = edt_pallas._launch
+    monkeypatch.setattr(edt_pallas, "_launch",
+                        lambda *a, **k: routes.append(a[3]) or launch(*a, **k))
+    before = column_pass.sm90_launches
+    got = edt_batch(masks, num_valid=nv, band=band)
+    assert column_pass.sm90_launches == before + 1 and routes == ["sm90"]
+    from tpu_unet_torch.ops.edt import _row_distance, _squared
+    ref = torch.sqrt(column_pass_plain(_squared(_row_distance(masks)).contiguous(),
+                                       num_valid=nv, band=band))
+    torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 
@@ -284,6 +320,8 @@ def test_column_pass_refuses_what_it_does_not_take(cuda):
         column_pass(g2.transpose(1, 2))
     with pytest.raises(ValueError):
         column_pass(g2[None], num_valid=torch.tensor([1], dtype=torch.int32))
+    with pytest.raises(ValueError, match="no route"):
+        _column_pass_route_forward(g2, None, None, "fast")
 
 
 def _k3_inputs(shape, cout, dtype, device, seed=0, offset=0):

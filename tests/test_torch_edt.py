@@ -11,6 +11,8 @@ chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +21,9 @@ from tpu_unet.ops.edt import _row_distance as jax_row_distance
 from tpu_unet.ops.edt import edt as jax_edt
 from tpu_unet.ops.edt import edt_batch as jax_edt_batch
 from tpu_unet.ops.edt_pallas import column_pass_pallas
-from tpu_unet_torch.ops.edt import _row_distance, edt, edt_batch
-from tpu_unet_torch.ops.edt_pallas import column_pass, column_pass_plain
+from tpu_unet_torch.ops.edt import _row_distance, _squared, edt, edt_batch
+from tpu_unet_torch.ops.edt_pallas import (_column_pass_route_forward, column_pass,
+                                           column_pass_plain)
 
 
 def _blobs(h, w, n, seed):
@@ -109,3 +112,69 @@ def test_column_pass_rejects_bad_arguments():
     column_pass_plain(g2, num_valid=torch.tensor([1, 0], dtype=torch.int32))
     column_pass(g2)
     assert column_pass.launches == before      # CPU calls are not launches
+
+
+def _bits_loop_model(g2, num_valid, band):
+    """Route "sm90"'s loop in plain PyTorch: rows outside the plane
+    staged as +inf, the f32 sum of each candidate over the offsets
+    -band..band (the exact pass: every offset that reaches the plane), the
+    minimum taken in int32 over the sums' bit patterns, read back as f32."""
+    h = g2.shape[-2]
+    reach = h - 1 if band is None else min(band, h)
+    s = torch.nn.functional.pad(g2, (0, 0, reach, reach), value=float("inf"))
+    acc = torch.full(g2.shape, float("inf")).view(torch.int32)
+    for d in range(-reach, reach + 1):
+        cand = s[..., reach + d:reach + d + h, :] + torch.tensor(float(d * d))
+        acc = torch.minimum(cand.view(torch.int32), acc)
+    out = acc.view(torch.float32)
+    if num_valid is not None:
+        k = torch.arange(g2.shape[-3])
+        live = (k < torch.as_tensor(num_valid)[..., None])[..., None, None]
+        out = torch.where(live, out, float("inf"))
+    return out
+
+
+@pytest.mark.parametrize("shape,num_valid", [
+    ((2, 5, 44, 52), [3, 0]),       # random masks, dead planes
+    ((1, 4, 1, 37), [2]),           # one-row planes
+    ((3, 30, 26), None),            # H < band
+    ((2, 3, 70, 45), None),
+])
+@pytest.mark.parametrize("band", [40, None])
+def test_bits_loop_model_equals_plain_bit_for_bit(shape, num_valid, band):
+    """Route "sm90"'s arithmetic (f32 sums, an int32 minimum over their bit
+    patterns) equals the f32 plain version bit for bit on edt_batch's g2,
+    an empty plane included; so do `column_pass` and both routes on the
+    CPU."""
+    rng = np.random.RandomState(sum(shape))
+    masks = rng.rand(*shape) < 0.03
+    masks.reshape(-1, *shape[-2:])[0] = False             # an empty plane
+    g2 = _squared(_row_distance(torch.from_numpy(masks))).contiguous()
+    nv = None if num_valid is None else torch.tensor(num_valid, dtype=torch.int32)
+    ref = column_pass_plain(g2, num_valid=nv, band=band)
+    assert torch.equal(_bits_loop_model(g2, nv, band), ref)
+    assert torch.equal(column_pass(g2, num_valid=nv, band=band), ref)
+    for route in ("sm90", "simple"):
+        assert torch.equal(_column_pass_route_forward(g2, nv, band, route), ref)
+    with pytest.raises(ValueError, match="no route"):
+        _column_pass_route_forward(g2, nv, band, "fast")
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(w=st.integers(1, 4096), seed=st.integers(0, 2 ** 31 - 1), hits=st.integers(0, 3))
+def test_edt_batch_row_distances_fit_the_bits_loop(w, seed, hits):
+    """The squared row distances edt_batch builds are what column_pass
+    takes (its route "sm90" relies on it), for every W up to 4096: +0
+    (never -0.0), positive or +inf, and every finite one an integer below
+    2^24 (so exact in f32), the farthest included: one hit at a row's end
+    leaves a distance of W - 1."""
+    rng = np.random.RandomState(seed)
+    masks = np.zeros((3, w), bool)
+    masks[0, 0] = True
+    masks[1, rng.randint(0, w, hits)] = True
+    g2 = _squared(_row_distance(torch.from_numpy(masks)))
+    assert not torch.isnan(g2).any() and not torch.signbit(g2).any()
+    fin = g2[torch.isfinite(g2)]
+    assert torch.equal(fin, fin.round()) and float(fin.max()) == (w - 1) ** 2 < 2 ** 24
+    assert torch.isinf(g2[2]).all()
+

@@ -6,6 +6,9 @@ build takes seconds): one ``nvcc -c`` per ``.cu`` file, all started
 together, then one link. The library lands in ``build/tpu_unet_torch/`` at
 the repository root, named by a hash of the sources and flags, so an edited
 source builds a new library. Nothing here runs when the module is imported.
+
+`launch` is the one launch path of every kernel wrapper: it calls a C entry
+on the current stream of a tensor's device and raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -111,8 +116,12 @@ def build() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C interface (once per process)."""
+    """Build if needed, load, and declare the C interface (once per process;
+    after that, the loaded library without taking the lock)."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -122,7 +131,6 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
-        ll, f = ctypes.c_longlong, ctypes.c_float
         lib.conv3x3_bias_relu_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.conv3x3_bias_relu_sm90.restype = i
         for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16", "conv_kxk_fused_s8"):
@@ -133,9 +141,11 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
             fn.restype = i
-        lib.edt_column_pass_f32.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
-                                            i, p]
+        ll, f = ctypes.c_longlong, ctypes.c_float
+        lib.edt_column_pass_f32.argtypes = [p, p, p, ll, i, i, i, i, p]
         lib.edt_column_pass_f32.restype = i
+        lib.edt_column_pass_sm90.argtypes = [p, p, p, ll, i, i, i, i, p]
+        lib.edt_column_pass_sm90.restype = i
         lib.enc0_chain.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.enc0_chain.restype = i
         lib.enc0_chain_sm90.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, ll, i, i, i, p]
@@ -160,3 +170,34 @@ def load_library() -> ctypes.CDLL:
 
 def cuda_error_string(code: int) -> str:
     return load_library().tpu_unet_torch_cuda_error_string(code).decode()
+
+
+#: The handle of a device's current stream, from its index, without building
+#: a `torch.cuda.Stream` object; and the current device's index. Bound to
+#: torch's own functions (None in a build of torch without CUDA).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def _describe(shapes: Sequence[Tuple[str, Any]]) -> str:
+    return ", ".join(f"{label} {tuple(v.shape) if isinstance(v, torch.Tensor) else v}"
+                     for label, v in shapes)
+
+
+def launch(name: str, fn, device: int, *args, shapes: Sequence[Tuple[str, Any]] = ()) -> None:
+    """Call the C entry `fn(*args, stream)` on the current stream of CUDA
+    device `device` (an index, as `tensor.get_device()` gives it), making
+    it the current device only when another one is.
+
+    `fn` returns the launch's CUDA error code; when it is not 0, raises
+    RuntimeError naming the kernel `name`, the CUDA error and `shapes`
+    (pairs of a label and a tensor, whose shape is printed, or a value),
+    which are formatted only then."""
+    if device == _current_device():
+        rc = fn(*args, _raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _raw_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({cuda_error_string(rc)}) at {_describe(shapes)}")

@@ -191,13 +191,6 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _launch_simple(x, w, b)
 
 
-def _raise_on(rc: int, x: torch.Tensor, w: torch.Tensor) -> None:
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_bias_relu launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x "
-                           f"{tuple(x.shape)}, w {tuple(w.shape)}")
-
-
 def _launch_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The sm90 route on checked bf16 CUDA tensors, on `sm90_plan`'s loop."""
     bsz, h, wd, cin = x.shape
@@ -205,12 +198,10 @@ def _launch_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     plan = sm90_plan(cin, cout)
     wk = w.permute(3, 0, 1, 2).contiguous()          # [Cout, 9, Cin]: K-major rows
     y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _build.load_library().conv3x3_bias_relu_sm90(
-            x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
-            int(plan.kind == "strip"), plan.bm, plan.bn, _sms(x.device), stream)
-    _raise_on(rc, x, w)
+    _build.launch("conv3x3_bias_relu", _build.load_library().conv3x3_bias_relu_sm90, x.get_device(),
+                  x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
+                  int(plan.kind == "strip"), plan.bm, plan.bn, _sms(x.device),
+                  shapes=(("x", x), ("w", w)))
     conv3x3_bias_relu.launches += 1
     conv3x3_bias_relu.sm90_launches += 1
     return y
@@ -227,11 +218,8 @@ def _launch_simple(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     ve = 16 // x.element_size()        # elements per 16-byte load
     vec = int(cin % ve == 0 and cout % ve == 0
               and all(t.data_ptr() % 16 == 0 for t in (x, w)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                bsz, h, wd, cin, cout, vec, stream)
-    _raise_on(rc, x, w)
+    _build.launch("conv3x3_bias_relu", fn, x.get_device(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  y.data_ptr(), bsz, h, wd, cin, cout, vec, shapes=(("x", x), ("w", w)))
     conv3x3_bias_relu.launches += 1
     return y
 

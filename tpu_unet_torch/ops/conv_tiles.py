@@ -299,18 +299,13 @@ def _check_kernel_args(x, w, alpha, beta) -> None:
 
 def launch_fused(name: str, fn, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
                  beta: torch.Tensor, y: torch.Tensor, *args) -> None:
-    """Call the C entry `fn` on checked CUDA tensors (K-major w) on the
-    current stream: (x, w, alpha, beta, y, B, H, W, Cin, Cout, *args,
+    """Call the C entry `fn` on checked CUDA tensors (K-major w) through
+    `_build.launch`: (x, w, alpha, beta, y, B, H, W, Cin, Cout, *args,
     stream); raise on a refused launch, naming the wrapper `name`."""
     bsz, h, wd, cin = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                bsz, h, wd, cin, y.shape[3], *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, "
-                           f"w [{y.shape[3]}, {w.shape[1]}]")
+    _build.launch(name, fn, x.get_device(), x.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+                  beta.data_ptr(), y.data_ptr(), bsz, h, wd, cin, y.shape[3], *args,
+                  shapes=(("x", x), ("w", [y.shape[3], w.shape[1]])))
 
 
 def conv3x3_fused_route(x: torch.Tensor, w: torch.Tensor, out_kind: str = "auto") -> str:

@@ -56,5 +56,5 @@ def edt_batch(masks: torch.Tensor, num_valid: NumValid = None,
     work. `band` restricts the column pass to vertical offsets <= band:
     distances above `band` may come back larger (up to +inf), exact below
     it."""
-    g2 = _squared(_row_distance(masks)).contiguous()
+    g2 = _squared(_row_distance(masks)).contiguous()       # squares: +0, > 0 or +inf
     return torch.sqrt(column_pass(g2, num_valid=num_valid, band=band))

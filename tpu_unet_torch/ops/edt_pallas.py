@@ -10,7 +10,11 @@ twins (``tpu_unet/ops/edt.py::_column_pass_from_g2`` and
 `_column_pass_banded_from_g2` here.
 
 `column_pass` dispatches on the device of `g2`: a CPU tensor goes to
-`column_pass_plain`, a CUDA tensor launches the kernel or raises.
+`column_pass_plain`, a CUDA tensor launches the kernel or raises. The
+kernel has two routes: "sm90", an offset-major sweep that takes the minimum
+over the f32 sums' bit patterns (what `column_pass` runs; g2 holds
+squares), and "simple", the first kernel, reached only through
+`_column_pass_route_forward` for comparisons.
 """
 
 from __future__ import annotations
@@ -92,32 +96,18 @@ def column_pass_plain(g2: torch.Tensor, num_valid: NumValid = None,
     return d2
 
 
-def column_pass(g2: torch.Tensor, num_valid: NumValid = None,
-                band: Optional[int] = None) -> torch.Tensor:
-    """g2 [..., N, H, W] f32 squared per-row distances -> [..., N, H, W] f32
-    D2, the column pass of the exact EDT.
-
-    `num_valid` (None: every plane; an int; or an integer tensor of g2's
-    leading shape ``[...]``): plane k of entry b is live iff k <
-    num_valid[b]; the others are +inf. `band` (None: exact) limits the pass
-    to vertical offsets |i - r| <= band; any D2 above band^2 may come back
-    larger, up to +inf.
-
-    On a CPU tensor: `column_pass_plain`. On a CUDA tensor: the Hopper
-    kernel, which takes a contiguous f32 `g2` and reads `num_valid` on the
-    device (no host sync); each launch counts in ``column_pass.launches``."""
-    if g2.device.type == "cpu":
-        return column_pass_plain(g2, num_valid, band)
+def _launch(g2: torch.Tensor, num_valid: NumValid, band: Optional[int], route: str
+            ) -> torch.Tensor:
+    """K2 on a CUDA g2 through `route`: "sm90" (the offset-major sweep) or
+    "simple" (the first kernel)."""
     if g2.device.type != "cuda":
         raise ValueError(f"column_pass runs on cpu or cuda, not {g2.device}")
     num_valid = _check(g2, num_valid, band)
     if not g2.is_contiguous():
         raise ValueError("g2 must be contiguous")
-    *lead, n, h, w = g2.shape
+    *_, n, h, w = g2.shape
     if n < 1 or h < 1 or w < 1:
         raise ValueError(f"empty planes: g2 {tuple(g2.shape)}")
-    planes = g2.numel() // (h * w)
-    out = torch.empty_like(g2)
     ptr = None
     if num_valid is not None:
         if num_valid.device.type == "cpu" and num_valid.dim() == 0:
@@ -126,17 +116,62 @@ def column_pass(g2: torch.Tensor, num_valid: NumValid = None,
             raise ValueError(f"num_valid is on {num_valid.device}, g2 on {g2.device}")
         num_valid = num_valid.to(torch.int32).contiguous()
         ptr = num_valid.data_ptr()
+    planes = g2.numel() // (h * w)
+    out = torch.empty_like(g2)
     lib = _build.load_library()
-    with torch.cuda.device(g2.device):
-        stream = torch.cuda.current_stream(g2.device).cuda_stream
-        rc = lib.edt_column_pass_f32(g2.data_ptr(), ptr, out.data_ptr(), planes,
-                                     n, h, w, -1 if band is None else band, stream)
-    if rc != 0:
-        raise RuntimeError(f"edt_column_pass launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at g2 {tuple(g2.shape)}")
+    b = -1 if band is None else band
+    if route == "sm90":
+        _build.launch("edt_column_pass (sm90 route)", lib.edt_column_pass_sm90, g2.get_device(),
+                      g2.data_ptr(), ptr, out.data_ptr(), planes, n, h, w, b,
+                      shapes=(("g2", g2),))
+        column_pass.sm90_launches += 1
+    else:
+        _build.launch("edt_column_pass (simple route)", lib.edt_column_pass_f32, g2.get_device(),
+                      g2.data_ptr(), ptr, out.data_ptr(), planes, n, h, w, b,
+                      shapes=(("g2", g2),))
     column_pass.launches += 1
     return out
 
 
-#: Kernel launches since the count was last set to 0 (CPU calls don't count).
+def column_pass(g2: torch.Tensor, num_valid: NumValid = None,
+                band: Optional[int] = None) -> torch.Tensor:
+    """g2 [..., N, H, W] f32 squared per-row distances -> [..., N, H, W] f32
+    D2, the column pass of the exact EDT.
+
+    g2 holds squares: every value +0, positive or +inf, never negative or
+    NaN (`edt_batch`'s squared row distances). `num_valid` (None: every
+    plane; an int; or an integer tensor of g2's leading shape ``[...]``):
+    plane k of entry b is live iff k < num_valid[b]; the others are +inf.
+    `band` (None: exact) limits the pass to vertical offsets |i - r| <=
+    band; any D2 above band^2 may come back larger, up to +inf.
+
+    On a CPU tensor: `column_pass_plain`. On a CUDA tensor: the Hopper
+    kernel's route "sm90", which takes a contiguous f32 `g2` and reads
+    `num_valid` on the device (no host sync); it takes the minimum over the
+    f32 sums' bit patterns, which order as the sums do because the sums are
+    non-negative, so it equals `column_pass_plain` bit for bit. A g2 that
+    breaks the contract gives a wrong result, not an error: nothing reads g2
+    on the host. Each launch counts in ``column_pass.launches`` and
+    ``column_pass.sm90_launches``."""
+    if g2.device.type == "cpu":
+        return column_pass_plain(g2, num_valid, band)
+    return _launch(g2, num_valid, band, "sm90")
+
+
+def _column_pass_route_forward(g2: torch.Tensor, num_valid: NumValid, band: Optional[int],
+                               route: str) -> torch.Tensor:
+    """K2 through the named route, "sm90" (what `column_pass` runs) or
+    "simple" (the first kernel, one candidate row at a time), for comparing and timing
+    the two on the card; no path of the model calls it. On a CPU tensor
+    every route runs `column_pass_plain`."""
+    if route not in ("sm90", "simple"):
+        raise ValueError(f"no route {route!r}")
+    if g2.device.type == "cpu":
+        return column_pass_plain(g2, num_valid, band)
+    return _launch(g2, num_valid, band, route)
+
+
+#: Kernel launches since the count was last set to 0 (CPU calls don't
+#: count): all routes, and the sm90 route's alone.
 column_pass.launches = 0
+column_pass.sm90_launches = 0

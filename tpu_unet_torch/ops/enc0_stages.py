@@ -54,12 +54,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _raise_on(rc: int, name: str, shape) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at {tuple(shape)}")
-
-
 def _kernel_channels(name: str, *cs: int) -> None:
     if any(c % 8 for c in cs):
         raise ValueError(f"the {name} kernel takes channel counts that are multiples of 8, "
@@ -129,12 +123,9 @@ def conv1_stage(x: torch.Tensor, w9: torch.Tensor, b: Optional[torch.Tensor] = N
     bsz, h, w = x.shape[:3]
     oshape = (bsz, h, w, c) if taps else (bsz, h - 2, w - 2, c)
     out = torch.empty(oshape, dtype=torch.bfloat16, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _build.load_library().enc0_conv1_stage(
-            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), out.data_ptr(), bsz, h, w, c,
-            int(x.dtype == torch.bfloat16), int(taps), stream)
-    _raise_on(rc, "conv1_stage", x.shape)
+    _build.launch("conv1_stage", _build.load_library().enc0_conv1_stage, x.get_device(),
+                  x.data_ptr(), wf.data_ptr(), bf.data_ptr(), out.data_ptr(), bsz, h, w, c,
+                  int(x.dtype == torch.bfloat16), int(taps), shapes=(("x", x),))
     conv1_stage.launches += 1
     return out
 
@@ -182,12 +173,9 @@ def conv2_stage(h: torch.Tensor, w: torch.Tensor, *, relu_bf16: bool = False) ->
     w2t = w.reshape(9, cin, cout).permute(2, 0, 1).contiguous()
     out = torch.empty((bsz, hh - 2, ww - 2, cout), device=h.device,
                       dtype=torch.bfloat16 if relu_bf16 else torch.float32)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = _build.load_library().enc0_conv2_stage(
-            h.data_ptr(), w2t.data_ptr(), out.data_ptr(), bsz, hh, ww, cin, cout,
-            int(relu_bf16), _sms(h.device), stream)
-    _raise_on(rc, "conv2_stage", h.shape)
+    _build.launch("conv2_stage", _build.load_library().enc0_conv2_stage, h.get_device(),
+                  h.data_ptr(), w2t.data_ptr(), out.data_ptr(), bsz, hh, ww, cin, cout,
+                  int(relu_bf16), _sms(h.device), shapes=(("h", h),))
     conv2_stage.launches += 1
     return out
 
@@ -254,14 +242,11 @@ def pool_quant_stage(h: torch.Tensor, *, skip: Optional[str] = None,
     pooled = (torch.empty((bsz, hh // 2, ww // 2, c), dtype=torch.bfloat16, device=h.device)
               if pool else None)
     s = float(np.float32(skip_scale)) if skip == "int8" else 0.0
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = _build.load_library().enc0_pool_quant_stage(
-            h.data_ptr(), out.data_ptr() if out is not None else None,
-            pooled.data_ptr() if pooled is not None else None, bsz, hh, ww, c,
-            int(h.dtype == torch.bfloat16), SKIP_KINDS.index(skip), ctypes.c_float(s),
-            int(pool), stream)
-    _raise_on(rc, "pool_quant_stage", h.shape)
+    _build.launch("pool_quant_stage", _build.load_library().enc0_pool_quant_stage, h.get_device(),
+                  h.data_ptr(), out.data_ptr() if out is not None else None,
+                  pooled.data_ptr() if pooled is not None else None, bsz, hh, ww, c,
+                  int(h.dtype == torch.bfloat16), SKIP_KINDS.index(skip), ctypes.c_float(s),
+                  int(pool), shapes=(("h", h),))
     pool_quant_stage.launches += 1
     return out, pooled
 

@@ -184,28 +184,25 @@ def _enc0_forward(x, w1, b1, w2, b2, skip_scale: float, route: str):
     common = (int(x2.dtype == torch.bfloat16), int(skip_scale > 0),
               ctypes.c_float(_inverse(skip_scale) if skip_scale > 0 else 0.0))
     lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "sm90":
-            # conv2's weights K-major [C, 9, C], as the strip loop reads them
-            w2k = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1).contiguous()
-            plan = enc0_plan(bsz, h, w)
-            rc = lib.enc0_chain_sm90(
-                x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2k.data_ptr(), b2f.data_ptr(),
-                skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common, plan.tiles,
-                plan.tiles_c, plan.tiles_img, _sms(x.device), stream)
-        else:
-            cp = -(-c // 16) * 16
-            # conv2's weights as each output channel's K-contiguous row [C, 9, CP]:
-            # tap-major, input channels zero-padded to CP
-            w2t = torch.zeros((c, 9, cp), dtype=torch.bfloat16, device=x.device)
-            w2t[:, :, :c] = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1)
-            rc = lib.enc0_chain(
-                x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-                skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common, stream)
-    if rc != 0:
-        raise RuntimeError(f"enc0_chain launch failed ({route} route): CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at x {tuple(x.shape)}, C {c}")
+    shapes = (("x", x), ("C", c))
+    if route == "sm90":
+        # conv2's weights K-major [C, 9, C], as the strip loop reads them
+        w2k = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1).contiguous()
+        plan = enc0_plan(bsz, h, w)
+        _build.launch("enc0_chain (sm90 route)", lib.enc0_chain_sm90, x.get_device(),
+                      x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2k.data_ptr(),
+                      b2f.data_ptr(), skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common,
+                      plan.tiles, plan.tiles_c, plan.tiles_img, _sms(x.device), shapes=shapes)
+    else:
+        cp = -(-c // 16) * 16
+        # conv2's weights as each output channel's K-contiguous row [C, 9, CP]:
+        # tap-major, input channels zero-padded to CP
+        w2t = torch.zeros((c, 9, cp), dtype=torch.bfloat16, device=x.device)
+        w2t[:, :, :c] = w2.to(torch.bfloat16).reshape(9, c, c).permute(2, 0, 1)
+        _build.launch("enc0_chain (simple route)", lib.enc0_chain, x.get_device(),
+                      x2.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(),
+                      b2f.data_ptr(), skip.data_ptr(), pooled.data_ptr(), bsz, h, w, c, *common,
+                      shapes=shapes)
     enc0_chain.launches += 1
     if route == "sm90":
         enc0_chain.sm90_launches += 1
@@ -303,15 +300,10 @@ def concat_quantize(a: torch.Tensor, b: torch.Tensor, scale, *,
               and all(t.data_ptr() % 16 == 0 for t in (a, b, out))
               and all(t.stride(d) * t.element_size() % 16 == 0
                       for t in (a, b) for d in (0, 1)))
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _build.load_library().concat_quantize(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), *strides, bsz, h, w, c,
-            int(a.dtype == torch.int8), int(b.dtype == torch.int8),
-            ctypes.c_float(_inverse(scale)), vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"concat_quantize launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at {tuple(a.shape)}")
+    _build.launch("concat_quantize", _build.load_library().concat_quantize, a.get_device(),
+                  a.data_ptr(), b.data_ptr(), out.data_ptr(), *strides, bsz, h, w, c,
+                  int(a.dtype == torch.int8), int(b.dtype == torch.int8),
+                  ctypes.c_float(_inverse(scale)), vec, shapes=(("a", a),))
     concat_quantize.launches += 1
     return out
 

@@ -64,23 +64,17 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if src.stride(1) != 1 or src.stride(0) < c:
         src = src.contiguous()
     idx = idx.contiguous()
-    out = torch.empty((idx.shape[0], c), dtype=torch.float32, device=src.device)
+    m = idx.shape[0]
+    out = src.new_empty((m, c))                     # f32 on src's device
     if n == 0:
         return out.fill_(float("nan"))
-    if out.numel() == 0:
+    if m == 0:
         return out
-    stride = src.stride(0)
-    vec = int(c % 4 == 0 and stride % 4 == 0
-              and src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = _build.load_library().row_gather_f32(
-            src.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), out.data_ptr(),
-            n, idx.shape[0], c, stride, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"row_gather launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at src {tuple(src.shape)}, "
-                           f"idx {tuple(idx.shape)}")
+    stride, src_ptr, out_ptr = src.stride(0), src.data_ptr(), out.data_ptr()
+    vec = int(c % 4 == 0 and stride % 4 == 0 and src_ptr % 16 == 0 and out_ptr % 16 == 0)
+    _build.launch("row_gather", _build.load_library().row_gather_f32, src.get_device(),
+                  src_ptr, idx.data_ptr(), int(idx.dtype == torch.int64), out_ptr, n, m, c,
+                  stride, vec, shapes=(("src", src), ("idx", idx)))
     row_gather.launches += 1
     return out
 

@@ -69,24 +69,20 @@ def _launch(fn_name: str, mode: int, a: torch.Tensor, b: torch.Tensor,
     vec = int(seg % 16 == 0 and all(p % 16 == 0 for p in ptrs)
               and all(s % 16 == 0 for s in strides))
     nb, h, w = out.shape[:3]
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = _build.load_library().interleave_copy(
-            mode, *ptrs, *strides, nb, h, w, seg, vec, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} "
-                           f"({_build.cuda_error_string(rc)}) at out {tuple(out.shape)}")
+    _build.launch(fn_name, _build.load_library().interleave_copy, out.get_device(),
+                  mode, *ptrs, *strides, nb, h, w, seg, vec, shapes=(("out", out),))
 
 
 def _on_cuda(fn_name: str, *ts: torch.Tensor) -> bool:
     """False for CPU tensors (the plain version runs); True for CUDA ones;
-    raises for a mix or another device."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
+    raises for a mix or another device. Reads each tensor's flags and
+    device index, without building `torch.device` objects."""
+    cuda, index = ts[0].is_cuda, ts[0].get_device()
+    if any(t.is_cuda != cuda or t.get_device() != index for t in ts[1:]):
         raise ValueError(f"{fn_name}: inputs on {[str(t.device) for t in ts]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn_name} runs on cpu or cuda, not {dev}")
-    return dev.type == "cuda"
+    if not cuda and not all(t.is_cpu for t in ts):
+        raise ValueError(f"{fn_name} runs on cpu or cuda, not on {[str(t.device) for t in ts]}")
+    return cuda
 
 
 def pair_batch_channels(x: torch.Tensor) -> torch.Tensor:
