@@ -130,13 +130,36 @@ Phases, each printing its own lines:
      piece against its oracle, K4 and K5 at the scripts' sizes, and the
      staged chain at the chunk against K4 (pooled maps equal bit for bit, a
      gate), timed in turns with K4 and the library level 0.
+ 20. the CLI, in process through tpu_unet_torch.cli.main: TRAINING
+     DIC-HeLa (--synthetic: 10 images of 448^2) at full width in bf16 for
+     epochs 0..1 with its defaults ('xla', --phase-level0), K2 launched on
+     route sm90 at least once a train step, 'best' and 'latest' written, the
+     loss finite, and TESTING 'best'. Its ten steps leave every pixel one
+     class, a map any kernel would reproduce, so the CLI then serves the
+     weights phase 13 trained, stored beside 'best' as 'served' ('xla') and
+     'served_pallas' (its stored conv_impl 'pallas', run with
+     --no-phase-level0): plain, --quant int8 and int8-phase, with K1 17 sm90
+     + 1 simple, K3 14 and 13, and the k x k kernel 2 per chunk under
+     'pallas' (int8 calibration's float forward adds K1's 18 once a run),
+     none under 'xla'. Each run's IoU and pixel error lie in [0, 1], its
+     predictions read back through the port's TIFF codec as 0/255 maps that
+     hold both classes, and the 'pallas' maps agree with the 'xla' ones on
+     RESEARCH_AGREE of the pixels. K1, K3 and the k x k kernel are held
+     against their plain versions at the shapes these runs give them (one
+     chunk of 10 tiles of 636^2; the bars of phases 2, 9 and 15), and the
+     served weights' logits on that chunk 'pallas' against 'xla' (bf16 at
+     phase 3's bar; int8 and int8-phase bit for bit, as phases 10 and 16).
+     Then python -m tpu_unet_torch as a process (exit 0, the same maps),
+     and beside it, with CUDA_VISIBLE_DEVICES='' and no --platform, one that
+     must exit non-zero naming --platform cpu. Each run's wall time beside
+     the card's name and power limit.
 The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
 interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
 enc0_conv2_stage, enc0_pool_quant_stage) and of the end-to-end paths
 timed in turns (float serving, research 'fused', the 'pallas' train step)
-with their device idle shares; the last line is
+with their device idle shares, and phase 20's runs; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -150,6 +173,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -210,7 +234,7 @@ def chunk_bound(shapes, kind: str, in_bytes: int, out_bytes: int, vec_bytes: int
     return bound(sum(c[0] for c in costs), sum(c[1] for c in costs), kind)
 
 
-def phase1_device():
+def phase1_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
     import tpu_unet_torch
@@ -233,6 +257,7 @@ def phase1_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)                 # bare, as nvidia-smi gives it: no time stamp
+    return smi
 
 
 def conv_shapes(cfg, size: int):
@@ -750,11 +775,11 @@ KERNEL_GROUPS = (
 def _profile(step, n: int):
     """Device time by kernel over `n` calls of `step` under torch.profiler:
     (window ms on the host clock, busy ms, {group: ms}, top kernels)."""
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_unet_torch.utils.profiling import trace_capture
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace_capture() as prof:
         for r in range(n):
             step(r)
         torch.cuda.synchronize()
@@ -920,12 +945,12 @@ QUANT_STAGES = ([f"enc{d}_conv{i}" for d in range(4) for i in (1, 2)]
                 + [f"dec{d}_conv{i}" for d in range(4) for i in (1, 2)])
 
 
-def int8_shapes(cfg):
-    """The conv shapes of a 572x572 tile that int8 serving runs through K3."""
+def int8_shapes(cfg, size: int = TILE_IN):
+    """The conv shapes of a size x size tile that int8 serving runs through K3."""
     from tpu_unet_torch.infer.quant import default_quant_names
 
     names = default_quant_names(cfg)
-    shapes = [sh for sh in conv_shapes(cfg, TILE_IN)[0] if sh[0] in names]
+    shapes = [sh for sh in conv_shapes(cfg, size)[0] if sh[0] in names]
     if len(shapes) != 14:
         raise AssertionError(f"{len(shapes)} int8 convs, want 14: {sorted(names)}")
     return shapes
@@ -1748,12 +1773,12 @@ def phase14_time_research(model, data, qp):
 PHASE_LAUNCHES = {"conv_kxk_fused": 2, "conv3x3_fused": 13}
 
 
-def kxk_shapes(cfg):
+def kxk_shapes(cfg, tile_in: int = TILE_IN, tile_out: int = TILE_OUT):
     """(layer, packed input H=W, Cin, Cout) of the two packed 2x2 int8 convs
-    of a 572x572 tile: enc0_conv2 (s2d 286 -> 285 -> 284) and dec0_conv2
-    (packed up0 196 -> 195 -> 194 = 388 / 2)."""
+    of a tile_in x tile_in tile: at 572, enc0_conv2 (s2d 286 -> 285 -> 284)
+    and dec0_conv2 (packed up0 196 -> 195 -> 194 = 388 / 2)."""
     c = 4 * cfg.widths[0]
-    return [("enc0_conv2", TILE_IN // 2 - 1, c, c), ("dec0_conv2", TILE_OUT // 2 + 1, c, c)]
+    return [("enc0_conv2", tile_in // 2 - 1, c, c), ("dec0_conv2", tile_out // 2 + 1, c, c)]
 
 
 def kxk_cost(batch: int, s: int, k: int, cin: int, cout: int):
@@ -2436,6 +2461,346 @@ def phase19_enc0_stages():
     return errs, times, probe, launches
 
 
+# Phase 20: the CLI, run in process through tpu_unet_torch.cli.main so the
+# wrappers' launch counts can be read. The DIC-HeLa fixture (10 images of
+# 448^2, each one whole-image tile of 636^2) serves in one chunk of 10.
+CLI_ARGS = ["-d", "DIC-C2DH-HeLa", "--synthetic", "--quiet"]
+CLI_EPOCHS = 1                     # epochs 0..1
+CLI_IMAGES, CLI_SIDE = 10, 448
+CLI_QUANT = (None, "int8", "int8-phase")
+# launches per chunk when TESTING a 'pallas' checkpoint, by --quant:
+# {kernel: (all launches, of them on route sm90)}
+CLI_PALLAS_LAUNCHES = {
+    None: {"conv3x3_bias_relu": (18, 17), "conv3x3_fused": (0, 0), "conv_kxk_fused": (0, 0)},
+    "int8": {"conv3x3_bias_relu": (0, 0), "conv3x3_fused": (14, 14), "conv_kxk_fused": (0, 0)},
+    "int8-phase": {"conv3x3_bias_relu": (0, 0), "conv3x3_fused": (13, 13),
+                   "conv_kxk_fused": (2, 2)},
+}
+# ... and once a run under --quant: int8 calibration's one float forward
+CLI_CALIBRATION_LAUNCHES = {"conv3x3_bias_relu": (18, 17)}
+
+
+def cli_plan():
+    """(tile_in, tile_out, tiles per chunk, chunks) of the CLI's TESTING of
+    the fixture: each image one whole-image tile, the tiles in chunks of
+    BATCH_TILES or fewer (TileInference's default)."""
+    from tpu_unet_torch.core.geometry import input_size_compute, plan_tiles
+
+    plan = plan_tiles(CLI_SIDE, CLI_SIDE, input_size_compute(CLI_SIDE)[2])
+    n_tiles = CLI_IMAGES * plan.num_tiles
+    batch = min(BATCH_TILES, n_tiles)
+    return plan.tile_in, plan.tile_out, batch, -(-n_tiles // batch)
+
+
+@torch.inference_mode()
+def phase20_kernels_vs_plain(cfg):
+    """K1, K3 and the k x k kernel at the shapes the CLI's TESTING gives
+    them (one chunk of `batch` tiles of tile_in^2), each against its plain
+    version: K1 at phase 2's bf16 bar, on the route the model takes; K3 (int8
+    out, as int8 serving calls it) and the k x k kernel (through
+    conv_rows3_col, as int8-phase serving calls it) bit for bit on the sm90
+    loop, as phases 9 and 15. Returns {kernel: max |err|}."""
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused, conv_kxk_fused_plain, conv_rows3_col
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused_plain
+
+    tile_in, tile_out, batch, _ = cli_plan()
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    shapes, out = conv_shapes(cfg, tile_in)
+    if out != tile_out:
+        raise AssertionError(f"a {tile_in}^2 tile gives {out}^2, the plan {tile_out}^2")
+    errs = {"conv3x3_bias_relu": 0.0, "conv3x3_fused": 0.0, "conv_kxk_fused": 0.0}
+    for name, s, cin, cout in shapes:
+        route = _route_of(cin)
+        err = _compare((batch, s, s, cin), cout, torch.bfloat16, gen, route)
+        errs["conv3x3_bias_relu"] = max(errs["conv3x3_bias_relu"], err)
+        log(f"phase 20: K1 {name:17s} x[{batch},{s},{s},{cin}] -> {cout} ({route}): bf16 "
+            f"max|err| {err:.3g} (bound {BF16_TOL} x scale)")
+    cases = [("conv3x3_fused", name, 3, s, cin, cout)
+             for name, s, cin, cout in int8_shapes(cfg, tile_in)]
+    cases += [("conv_kxk_fused", name, 2, s, cin, cout)
+              for name, s, cin, cout in kxk_shapes(cfg, tile_in, tile_out)]
+    for kernel, name, k, s, cin, cout in cases:
+        x, w, alpha, beta = _k3_inputs((batch, s, s, cin), cout, torch.int8, gen, k=k)
+        if kernel == "conv3x3_fused":
+            got, took = _k3_launch(x, w, alpha, beta, "int8")
+            ref = conv3x3_fused_plain(x, w, alpha, beta, "int8")
+        else:
+            sm90 = conv_kxk_fused.sm90_launches
+            got = conv_rows3_col(x, w, alpha, beta)
+            took = "sm90" if conv_kxk_fused.sm90_launches > sm90 else "simple"
+            ref = conv_kxk_fused_plain(x, w, alpha, beta)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        errs[kernel] = max(errs[kernel], err)
+        share = (ref > 0).float().mean().item()
+        log(f"phase 20: {kernel} {name:17s} {k}x{k} x[{batch},{s},{s},{cin}] -> {cout} "
+            f"({took}): max|err| {err} vs plain (bar: equal); nonzero share {share:.3f}")
+        if not (took == "sm90" and got.dtype == torch.int8 and torch.equal(got, ref)):
+            raise AssertionError(f"{kernel} at the CLI's {name} shape: route {took}, "
+                                 f"max|err| {err}")
+        if not 0.0 < share < 1.0:
+            raise AssertionError(f"degenerate {kernel} test outputs at {name}")
+        del x, w, got, ref
+    log(f"phase 20: K1 (18 convs), K3 (14) and the k x k kernel (2) at the CLI's shapes "
+        f"within their bars: {errs}")
+    return errs
+
+
+def _serve_checkpoints(models_dir, served_state):
+    """Store `served_state` beside the CLI's 'best', under its host state
+    and model config, as 'served' (stored conv_impl 'xla') and
+    'served_pallas' ('pallas'): the layout the CLI's TESTING reads.
+    Returns {impl: checkpoint path}."""
+    from tpu_unet_torch.train.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(models_dir)
+    _, host = ckpt.restore("best")
+    paths = {}
+    for impl, tag in (("xla", "served"), ("pallas", "served_pallas")):
+        hs = json.loads(json.dumps(host))
+        hs["model_cfg"]["conv_impl"] = impl
+        paths[impl] = ckpt.save(tag, {"model": served_state}, hs)
+    return paths
+
+
+def _cli_served_logits(ckpt, images):
+    """The served weights' logits on the CLI's one chunk of tiles, as the
+    TESTING runs compute them, 'pallas' against 'xla': bf16 within
+    MODEL_TOL of the scale, with equal argmax wherever the 'xla' margin
+    exceeds twice the largest difference (phase 3); int8 and int8-phase,
+    calibrated once and served under both, bit for bit (phases 10 and 16).
+    Returns {forward: max |err|}."""
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.infer.quant import (QuantInference, build_quant_inference,
+                                            calibration_batch)
+    from tpu_unet_torch.models import ModelConfig, UNet
+    from tpu_unet_torch.train.checkpoint import Checkpointer
+
+    state, host = Checkpointer(os.path.dirname(ckpt)).restore(os.path.basename(ckpt))
+    models = {}
+    for impl, level0 in (("xla", True), ("pallas", False)):    # as the CLI runs them
+        m = UNet(ModelConfig(**{**host["model_cfg"], "conv_impl": impl,
+                                "phase_level0": level0})).to(DEVICE)
+        m.load_state_dict(state["model"])
+        models[impl] = m
+    engines = {impl: TileInference(m, CLI_SIDE, CLI_SIDE) for impl, m in models.items()}
+    tiles = engines["xla"]._flat_tiles(engines["xla"]._on_device(images, torch.float32))
+    errs = {}
+    with torch.inference_mode():
+        lp, lx = (engines[impl]._forward(tiles) for impl in ("pallas", "xla"))
+        err, scale, _, same, same_decided, decided = _logit_diff(lp, lx)
+        log(f"phase 20: served bf16 logits on {tiles.shape[0]} tiles of {tiles.shape[1]}^2, "
+            f"'pallas' vs 'xla': max|err| {err:.4g} (scale {scale:.4g}, bound {MODEL_TOL} x "
+            f"scale); argmax equal on {same:.6f}, and on {same_decided:.6f} of the "
+            f"{decided:.6f} whose margin exceeds 2 x max|err|")
+        if not (err <= MODEL_TOL * scale and same_decided == 1.0):
+            raise AssertionError("served bf16 logits: 'pallas' and 'xla' disagree")
+        errs["bf16"] = err
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the float layers run twice
+    try:
+        for quant, level0 in (("int8", None), ("int8-phase", "int8")):
+            qp = build_quant_inference(models["xla"], calibration_batch(list(images)),
+                                       phase_level0=level0).qp
+            got, want = (QuantInference(qp, impl=impl, phase_level0=level0,
+                                        device=DEVICE).apply(tiles)
+                         for impl in ("pallas", "xla"))
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            errs[quant] = (got - want).abs().max().item()
+            log(f"phase 20: served {quant} logits, 'pallas' (K3{', k x k' if level0 else ''}) "
+                f"vs 'xla' (library): max|err| {errs[quant]} (bar: equal)")
+            if not torch.equal(got, want):
+                raise AssertionError(f"served {quant} logits: 'pallas' and 'xla' differ")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return errs
+
+
+def _cli_main(argv):
+    """cli.main(argv) with every kernel's count set to 0 just before it:
+    (wall seconds, {kernel: (launches, of them sm90)}); a non-zero exit
+    raises."""
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+    from tpu_unet_torch.ops.edt_pallas import column_pass
+
+    fns = {"conv3x3_bias_relu": conv3x3_bias_relu, "edt_column_pass": column_pass,
+           "conv3x3_fused": conv3x3_fused, "conv_kxk_fused": conv_kxk_fused}
+    for fn in fns.values():
+        fn.launches = fn.sm90_launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--platform", DEVICE])
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return seconds, {name: (fn.launches, fn.sm90_launches) for name, fn in fns.items()}
+
+
+def _cli_outputs(out_dir):
+    """(iou, pixel error, class maps [N, H, W] in {0, 1}) of a TESTING run,
+    read back from its files through the port's TIFF codec."""
+    from tpu_unet_torch.data.tiff import read_tiff
+
+    iou, pe = (float(np.loadtxt(os.path.join(out_dir, f))[0])
+               for f in ("test_iou.out", "test_pe.out"))
+    if not (0.0 <= iou <= 1.0 and 0.0 <= pe <= 1.0):
+        raise AssertionError(f"{out_dir}: IoU {iou}, pixel error {pe}")
+    maps = []
+    for i in range(CLI_IMAGES):
+        (pred,) = read_tiff(os.path.join(out_dir, "preds", f"pred{i}.tif"))
+        if pred.shape != (CLI_SIDE, CLI_SIDE) or pred.dtype != np.uint8 \
+                or not set(np.unique(pred).tolist()) <= {0, 255}:
+            raise AssertionError(f"{out_dir}/preds/pred{i}.tif: {pred.dtype} "
+                                 f"{pred.shape} values {np.unique(pred)[:4]}")
+        maps.append(pred == 255)
+    return iou, pe, np.stack(maps)
+
+
+def _both_classes(maps, what) -> float:
+    """The foreground share of `maps`; raises unless both classes occur (a
+    one-class map is written as all zeros and equals any other)."""
+    share = float(maps.mean())
+    if not 0.0 < share < 1.0:
+        raise AssertionError(f"{what}: foreground share {share}, one class only")
+    return share
+
+
+def _cli_process(argv, env_extra):
+    """`python -m tpu_unet_torch argv`, started as a process from the checkout."""
+    env = dict(os.environ, PYTHONPATH=HERE, **env_extra)
+    return subprocess.Popen([sys.executable, "-m", "tpu_unet_torch"] + argv, cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _wait(proc, t0):
+    """(exit code, seconds since t0, stderr) of `proc`, killed after 600 s."""
+    try:
+        _, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    return proc.returncode, time.perf_counter() - t0, err
+
+
+def phase20_cli(smi, cfg, served_state):
+    """The system's own entry point on the card: TRAINING DIC-HeLa at full
+    width ('xla', phase-packed level 0, bf16; K2 every step) and TESTING its
+    'best'. Ten steps leave that model one class everywhere, so the CLI then
+    serves `served_state` (the weights phase 13 trained), stored as an
+    'xla' and a 'pallas' checkpoint, plain, int8 and int8-phase (K1, K3 and
+    the k x k kernel counted per chunk): the class maps hold both classes
+    and 'pallas' agrees with 'xla'. The kernels at these runs' shapes are
+    held against their plain versions, and the served logits 'pallas'
+    against 'xla'. Then the entry point as a process, with a card and,
+    beside it, without one. Returns ({run: {"s": wall seconds, ...}},
+    {kernel or "served_logits": max |err|})."""
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.config import DATASETS
+    from tpu_unet_torch.train.progress import FILES
+
+    out = os.path.join(HERE, "build", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    runs = {}
+    tile_in, _, batch, n_chunks = cli_plan()
+
+    seconds, launches = _cli_main(["-m", "TRAINING", "--epochs", str(CLI_EPOCHS),
+                                   "--dtype", "bfloat16", "--out-dir", out] + CLI_ARGS)
+    run_dir = os.path.join(out, "DIC-C2DH-HeLa", "all")
+    models_dir = os.path.join(run_dir, "models")
+    n_steps = (CLI_EPOCHS + 1) * (CLI_IMAGES // 2)
+    k2, k2_sm90 = launches["edt_column_pass"]
+    losses = np.loadtxt(os.path.join(run_dir, "progress", FILES["loss"]), ndmin=1)
+    runs["TRAINING"] = {"s": seconds, "launches": launches, "train_steps": n_steps,
+                        "loss": losses.tolist()}
+    log(f"phase 20: TRAINING {n_steps} steps in {seconds:.2f} s; launches {launches}; "
+        f"loss {losses.tolist()} ({smi})")
+    if k2 < n_steps or k2_sm90 != k2:
+        raise AssertionError(f"K2 launches {launches['edt_column_pass']}, want >= {n_steps}, "
+                             f"all on route sm90")
+    if len(losses) != CLI_EPOCHS + 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"loss.out {losses}")
+    for tag in ("best", "latest"):
+        if not os.path.isdir(os.path.join(models_dir, tag)):
+            raise AssertionError(f"no '{tag}' checkpoint in {models_dir}")
+    best = os.path.join(models_dir, "best")
+    seconds, launches = _cli_main(["-m", "TESTING", "-n", best] + CLI_ARGS)
+    iou, pe, maps = _cli_outputs(best + "_test")
+    runs["TESTING best"] = {"s": seconds, "launches": launches, "iou": iou, "pixel_error": pe,
+                            "foreground_share": float(maps.mean())}
+    log(f"phase 20: TESTING the trained 'best' (stored config) in {seconds:.2f} s: IoU "
+        f"{iou:.6f}, pixel error {pe:.6f}, foreground share {maps.mean():.6f}; launches "
+        f"{launches} ({smi})")
+    if launches != dict.fromkeys(launches, (0, 0)):
+        raise AssertionError(f"TESTING 'best' ('xla'): launches {launches}")
+
+    errs = phase20_kernels_vs_plain(cfg)
+    ckpts = _serve_checkpoints(models_dir, served_state)
+    args = cli.build_parser().parse_args(["-m", "TESTING"] + CLI_ARGS)
+    _, test_data = cli._load_data(args, DATASETS[args.dataset])
+    errs["served_logits"] = _cli_served_logits(ckpts["xla"], test_data.images)
+
+    maps = {}
+    for impl, extra in (("xla", []), ("pallas", ["--no-phase-level0"])):
+        for quant in CLI_QUANT:
+            argv = ["-m", "TESTING", "-n", ckpts[impl]] + CLI_ARGS + extra \
+                + (["--quant", quant] if quant else [])
+            seconds, launches = _cli_main(argv)
+            name = f"TESTING {impl} {quant or 'bf16'}"
+            iou, pe, maps[impl, quant] = _cli_outputs(ckpts[impl] + "_test")
+            share = _both_classes(maps[impl, quant], name)
+            runs[name] = {"s": seconds, "launches": launches, "iou": iou, "pixel_error": pe,
+                          "foreground_share": share}
+            agree = ""
+            if impl == "pallas":
+                same = float((maps[impl, quant] == maps["xla", quant]).mean())
+                runs[name]["agreement_vs_xla"] = same
+                agree = f"; class maps equal to 'xla''s on {same:.6f} (bar {RESEARCH_AGREE})"
+            log(f"phase 20: {name} ({' '.join(extra) or 'stored config'}) in {seconds:.2f} s: "
+                f"IoU {iou:.6f}, pixel error {pe:.6f}, foreground share {share:.6f}; launches "
+                f"{launches} for {CLI_IMAGES} tiles of {tile_in}^2 in {n_chunks} chunk(s) of "
+                f"{batch}{agree} ({smi})")
+            want = dict.fromkeys(launches, (0, 0))
+            if impl == "pallas":
+                calib = CLI_CALIBRATION_LAUNCHES if quant else {}
+                for k, (n, sm90) in CLI_PALLAS_LAUNCHES[quant].items():
+                    c, c_sm90 = calib.get(k, (0, 0))
+                    want[k] = (n * n_chunks + c, sm90 * n_chunks + c_sm90)
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches}, want {want}")
+            if runs[name].get("agreement_vs_xla", 1.0) < RESEARCH_AGREE:
+                raise AssertionError(f"{name}: class maps agree with 'xla' on "
+                                     f"{runs[name]['agreement_vs_xla']}")
+
+    # the entry point as a process and, beside it, one that finds no card
+    argv = ["-m", "TESTING", "-n", ckpts["pallas"], "--quant", "int8-phase",
+            "--no-phase-level0"] + CLI_ARGS
+    t0 = time.perf_counter()
+    procs = [_cli_process(argv + ["--platform", DEVICE], {}),
+             _cli_process(argv, {"CUDA_VISIBLE_DEVICES": ""})]
+    (rc, seconds, err), (rc_none, seconds_none, err_none) = (_wait(p, t0) for p in procs)
+    runs["process"] = {"s": seconds, "rc": rc}
+    runs["process without a card"] = {"s": seconds_none, "rc": rc_none}
+    log(f"phase 20: python -m tpu_unet_torch {' '.join(argv)}: exit {rc} in {seconds:.2f} s "
+        f"({smi}); beside it, with CUDA_VISIBLE_DEVICES='' and no --platform: exit {rc_none} "
+        f"in {seconds_none:.2f} s: {err_none.strip()[-200:]}")
+    if rc != 0:
+        raise AssertionError(f"python -m tpu_unet_torch exited {rc}: {err[-2000:]}")
+    if rc_none == 0 or "--platform cpu" not in err_none:
+        raise AssertionError(f"without a card: exit {rc_none}, stderr {err_none[-2000:]}")
+    _, _, proc_maps = _cli_outputs(ckpts["pallas"] + "_test")
+    _both_classes(proc_maps, "the process's class maps")
+    if not np.array_equal(proc_maps, maps["pallas", "int8-phase"]):
+        raise AssertionError("the process's class maps differ from the in-process run's")
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 20: ok in {sum(r['s'] for r in runs.values()):.1f} s of runs")
+    return runs, errs
+
+
 # (name, source, the TPU kernel it replaces, the formulation it runs on)
 RESEARCH_KERNELS = [
     ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
@@ -2546,7 +2911,7 @@ def end_to_end(tiles_s, research_tiles_s, step_ms):
 
 
 def main() -> None:
-    phase1_device()
+    smi = phase1_device()
     from tpu_unet_torch.models import ModelConfig
 
     # the plain version's f32 convs must not run in TF32
@@ -2573,9 +2938,13 @@ def main() -> None:
     qp_phase, phase_launches, phase_agree = phase16_serve_int8_phase(cfg, model, data, qp)
     phase_tiles_s, kxk_ms, phase_train_ms, probe, probe_launches = phase17_time_phase(
         cfg, model, data, qp, qp_phase)
+    served_state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     del model
     gather_err, gather_ms, gather_probe, gather_launches = phase18_gather()
     stage_errs, stage_ms, mosaic_probe, stage_launches = phase19_enc0_stages()
+    cli_runs, cli_errs = phase20_cli(smi, cfg, served_state)
+    cli_launches = {name: {k: v[0] for k, v in r["launches"].items()}
+                    for name, r in cli_runs.items() if "launches" in r}
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
     live_key = f"all 64 planes live, band {EDT_BAND}"
     # the two JSON lines are printed bare (no time stamp), to be parsed whole
@@ -2593,7 +2962,9 @@ def main() -> None:
         "library_ms": total["cudnn"],
         "backward_route": "library",
         "launches_by_path": {"serve": sum(serve_launches.values()),
-                             "train": launches["conv3x3_bias_relu"]},
+                             "train": launches["conv3x3_bias_relu"],
+                             "cli_test_pallas": cli_launches["TESTING pallas bf16"][
+                                 "conv3x3_bias_relu"]},
         "launches_by_route": {"serve": serve_launches,
                               "train": {"sm90": launches["conv3x3_bias_relu_sm90"],
                                         "simple": launches["conv3x3_bias_relu"]
@@ -2607,6 +2978,7 @@ def main() -> None:
         "sources": ["tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
                     "tpu_unet_torch/csrc/conv3x3_sm90.cuh"],
         "grad_max_rel_err": grad_err,
+        "cli_max_abs_err": cli_errs["conv3x3_bias_relu"],
         "evaluate_tiles_per_s": tiles_s,
     }, {
         "name": "edt_column_pass",
@@ -2626,7 +2998,8 @@ def main() -> None:
            "ms": edt_ms[live_key]["per_call"]["sm90"]},
         "routes": {"sm90": "column_pass (edt_batch)",
                    "simple": "_column_pass_route_forward only"},
-        "launches_by_path": {"train": launches["edt_column_pass"]},
+        "launches_by_path": {"train": launches["edt_column_pass"],
+                             "cli_train": cli_launches["TRAINING"]["edt_column_pass"]},
         "launches_by_route": {"train": {"sm90": launches["edt_column_pass_sm90"],
                                         "simple": launches["edt_column_pass"]
                                         - launches["edt_column_pass_sm90"]}},
@@ -2645,10 +3018,15 @@ def main() -> None:
         "bound_by": k3_total["bound_by"],
         "library_ms": k3_total["library"],
         "bf16_max_abs_err": k3_bf16_err,
+        "cli_max_abs_err": cli_errs["conv3x3_fused"],
         "launches_by_path": {"serve_int8": sum(int8_launches.values()),
                              "serve_int8_phase": phase_launches["conv3x3_fused"],
                              **{f"serve_int8_research_{k}": v["conv3x3_fused"]
-                                for k, v in research_launches.items()}},
+                                for k, v in research_launches.items()},
+                             "cli_test_pallas_int8": cli_launches["TESTING pallas int8"][
+                                 "conv3x3_fused"],
+                             "cli_test_pallas_int8_phase": cli_launches[
+                                 "TESTING pallas int8-phase"]["conv3x3_fused"]},
         "launches_by_route": {
             "serve_int8": int8_launches,
             "serve_int8_phase": _by_route(phase_launches, "conv3x3_fused"),
@@ -2668,13 +3046,16 @@ def main() -> None:
         "replaces_also": "scripts/tpu_deep_shootout_r4.py:184",
         "launches": phase_launches["conv_kxk_fused"],
         "max_abs_err": kxk_err,
+        "cli_max_abs_err": cli_errs["conv_kxk_fused"],
         "ms": kxk_ms["kernel"],
         "plain_ms": kxk_ms["plain"],
         "bound_ms": kxk_ms["bound"],
         "bound_by": kxk_ms["bound_by"],
         "library_ms": kxk_ms["library"],
         "launches_by_path": {"serve_int8_phase": phase_launches["conv_kxk_fused"],
-                             "probe": probe_launches},
+                             "probe": probe_launches,
+                             "cli_test_pallas_int8_phase": cli_launches[
+                                 "TESTING pallas int8-phase"]["conv_kxk_fused"]},
         "launches_by_route": {"serve_int8_phase": _by_route(phase_launches, "conv_kxk_fused")},
         "ms_by_route": {"sm90": kxk_ms["kernel"], "simple": kxk_ms["simple"]},
         "per_shape": kxk_ms["per_shape"],
@@ -2708,7 +3089,9 @@ def main() -> None:
         "mosaic_probe": [{k: r[k] for k in ("section", "name", "ms")} for r in mosaic_probe],
         "end_to_end": end_to_end(tiles_s, research_tiles_s, step_ms),
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
-        "phase_level0_train_step_ms": phase_train_ms}), flush=True)
+        "phase_level0_train_step_ms": phase_train_ms,
+        "cli_runs": cli_runs, "cli_served_logits_max_abs_err": cli_errs["served_logits"]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
 interpreter imports every module of tpu_unet_torch, runs a tiny evaluate()
-(float, int8 and int8-phase), the phase-packed model, a tiny research int8
-forward (fused and paired) and a tiny Trainer.fit(), and finds no `jax`,
-`triton` or `tpu_unet` module loaded and no kernel library built."""
+(float with its TIFF export, int8 and int8-phase), the phase-packed model, a
+tiny research int8 forward (fused and paired), a tiny Trainer.fit() and the
+CLI's TESTING of its checkpoint, and finds no `jax`, `triton`, `tpu_unet` or
+`PIL` module loaded and no kernel library built."""
 
 import ast
 import os
@@ -21,7 +22,10 @@ for mod in pkgutil.walk_packages(tpu_unet_torch.__path__, "tpu_unet_torch."):
     importlib.import_module(mod.name)
 assert _build._lib is None, "a kernel library was loaded at import"
 walked = {"tpu_unet_torch.ops.gather", "tpu_unet_torch.ops.enc0_stages",
-          "tpu_unet_torch.probes.gather_probe", "tpu_unet_torch.probes.mosaic_probe"}
+          "tpu_unet_torch.probes.gather_probe", "tpu_unet_torch.probes.mosaic_probe",
+          "tpu_unet_torch.cli", "tpu_unet_torch.data.download", "tpu_unet_torch.data.tiff",
+          "tpu_unet_torch.ops.morphology", "tpu_unet_torch.utils.profiling",
+          "tpu_unet_torch.utils.debug"}
 assert walked <= set(sys.modules), walked - set(sys.modules)
 
 from tpu_unet_torch.config import DatasetConfig, ModelConfig, TrainConfig
@@ -32,8 +36,11 @@ from tpu_unet_torch.train import Trainer
 
 model = UNet(ModelConfig(base_width=2, conv_impl="pallas"))
 data = synthetic_dataset(n_images=2, h=48, w=48, n_cells=2, crop=20, seed=1)
-result = evaluate(model, data, tile_out=36, verbose=False)
+out = tempfile.mkdtemp()
+result = evaluate(model, data, tile_out=36, verbose=False, output_dir=out)
 assert result["num_images"] == 2, result
+from tpu_unet_torch.data.tiff import read_tiff
+assert read_tiff(os.path.join(out, "preds", "pred1.tif"))[0].shape == (48, 48)
 qpath = os.path.join(tempfile.mkdtemp(), "qp.npz")
 wide = UNet(ModelConfig(base_width=8, conv_impl="pallas"))
 result = evaluate(wide, data, tile_out=36, verbose=False, quant="int8", quant_path=qpath)
@@ -55,12 +62,18 @@ for flags in ({"fused_enc0": True, "fused_concat": True}, {"pair_level0": True})
     assert y.shape == (2, 4, 4, 2) and bool(torch.isfinite(y).all()), flags
 ds = DatasetConfig(name="s", crop=20, metric="iou", weight_mode="distance",
                    goal=1.0, goal_direction="max")
+run = tempfile.mkdtemp()
 history = Trainer(ds, ModelConfig(base_width=2, conv_impl="pallas"),
-                  TrainConfig(batch_size=2), out_dir=tempfile.mkdtemp(),
+                  TrainConfig(batch_size=2), out_dir=run,
                   verbose=False, device="cpu").fit(data, data, epochs=0)
 assert len(history["loss"]) == 1, history
+from tpu_unet_torch import cli
+best = os.path.join(run, "models", "best")
+assert cli.main(["-m", "TESTING", "-d", "synthetic", "-n", best, "--quiet",
+                 "--platform", "cpu", "--no-phase-level0"]) == 0
+assert os.path.exists(os.path.join(best + "_test", "preds", "pred9.tif"))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "optax", "triton", "tpu_unet"))
+                if m.split(".")[0] in ("jax", "flax", "optax", "triton", "tpu_unet", "PIL"))
 assert not loaded, loaded
 assert _build._lib is None and not os.path.exists(_build.library_path())
 print("OK")
@@ -77,9 +90,9 @@ def test_port_runs_without_jax():
 
 def test_no_module_of_the_port_imports_jax_or_triton():
     """No source file of tpu_unet_torch, and not chip_smoke.py, names jax,
-    flax, optax, triton or the JAX package tpu_unet in an import, so no
+    flax, optax, triton, PIL or the JAX package tpu_unet in an import, so no
     import of the port can reach them."""
-    banned = {"jax", "flax", "optax", "triton", "tpu_unet"}
+    banned = {"jax", "flax", "optax", "triton", "tpu_unet", "PIL"}
     paths = sorted((REPO / "tpu_unet_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(paths) > 30
     for path in paths:

@@ -1,16 +1,25 @@
-"""Host-side ingest that serving needs: the dataset container,
-ground-truth preprocessing, the crop distribution and the square crop
-(counterpart of the parts of ``tpu_unet/data/ingest.py`` that the
-evaluation entry point uses; numpy only). The CTC/ISBI loaders are ROADMAP
-queue 1, item 7.
+"""Host-side dataset ingest (counterpart of ``tpu_unet/data/ingest.py``;
+numpy only): the dataset container, ground-truth preprocessing, the crop
+distribution, the square crop, and the CTC (Cell Tracking Challenge) and
+ISBI2012 loaders, which decode their TIFFs with the port's own codec
+(`tpu_unet_torch.data.tiff`).
+
+As in the JAX package, the CTC training loader excludes the frames that
+have gold truth from the silver-truth listing (the reference deletes them
+from disk and copies them back), and sequence directories are matched for
+any count of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+import re
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from tpu_unet_torch.data.tiff import read_tiff
 
 
 @dataclasses.dataclass
@@ -128,6 +137,84 @@ def crop_distribution(
         with np.errstate(divide="ignore"):
             log_probs[i] = np.where(p > 0, np.log(p), -np.inf)
     return log_probs, pairs
+
+
+# ------------------------------------------------------------------ loaders
+
+
+def _imread(path: str) -> np.ndarray:
+    """The first page of the TIFF at `path`."""
+    return read_tiff(path)[0]
+
+
+def _sequence_dirs(root_dir: str) -> List[str]:
+    """CTC sequence directories: pure-numeric names (01, 02, ...)."""
+    return sorted(
+        d for d in os.listdir(root_dir)
+        if re.fullmatch(r"\d+", d) and os.path.isdir(os.path.join(root_dir, d))
+    )
+
+
+def _load_pairs(
+    root_dir: str, seq: str, seg_kind: str, exclude: Sequence[str] = ()
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Load (image, instance-label) pairs for one sequence.
+
+    seg_kind: 'ST' (silver truth) or 'GT' (gold truth); the label
+    ``man_seg*`` goes with the image ``t*``."""
+    image_dir = os.path.join(root_dir, seq)
+    seg_dir = os.path.join(root_dir, f"{seq}_{seg_kind}", "SEG")
+    images, labels = [], []
+    for fname in sorted(os.listdir(seg_dir)):
+        if fname in exclude:
+            continue
+        image_name = fname.replace("man_seg", "t")
+        images.append(np.asarray(_imread(os.path.join(image_dir, image_name)), np.float32))
+        labels.append(_imread(os.path.join(seg_dir, fname)))
+    return images, labels
+
+
+def _build(images, raw_labels, crop: Optional[int], name: str) -> SegmentationData:
+    targets = [binarize_gt(preprocess_gt(lab)[0]) for lab in raw_labels]
+    images = np.stack(images).astype(np.float32)
+    targets = np.stack(targets)
+    if crop is not None:
+        log_probs, pairs = crop_distribution(targets, crop)
+    else:
+        log_probs, pairs = None, None
+    return SegmentationData(images, targets, log_probs, pairs, name=name)
+
+
+def load_ctc_training(root_dir: str, crop: int, name: str = "") -> SegmentationData:
+    """CTC training set: silver-truth (ST) labels, excluding the frames that
+    have gold truth (reserved for evaluation; the files stay on disk)."""
+    all_images, all_labels = [], []
+    for seq in _sequence_dirs(root_dir):
+        gt_dir = os.path.join(root_dir, f"{seq}_GT", "SEG")
+        exclude = os.listdir(gt_dir) if os.path.isdir(gt_dir) else ()
+        imgs, labs = _load_pairs(root_dir, seq, "ST", exclude=exclude)
+        all_images += imgs
+        all_labels += labs
+    return _build(all_images, all_labels, crop, name or root_dir)
+
+
+def load_ctc_test(root_dir: str, name: str = "") -> SegmentationData:
+    """Evaluation set: gold-truth (GT) labels only, of the training
+    sequences (the challenge sets have no public labels)."""
+    all_images, all_labels = [], []
+    for seq in _sequence_dirs(root_dir):
+        imgs, labs = _load_pairs(root_dir, seq, "GT")
+        all_images += imgs
+        all_labels += labs
+    return _build(all_images, all_labels, None, name or root_dir)
+
+
+def load_isbi_training(root_dir: str, crop: int, name: str = "ISBI2012") -> SegmentationData:
+    """ISBI2012: the single sequence '01' with GT labels, which the
+    downloader made instance masks by connected components; ingest
+    re-applies `preprocess_gt`."""
+    imgs, labs = _load_pairs(root_dir, "01", "GT")
+    return _build(imgs, labs, crop, name)
 
 
 def square_crop(image: np.ndarray, gt: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -17,17 +17,18 @@ from typing import Dict, Optional
 import numpy as np
 
 from tpu_unet_torch.data.ingest import SegmentationData, square_crop
+from tpu_unet_torch.data.tiff import write_tiff
 from tpu_unet_torch.infer.tiles import TileInference
 
 
 def _save_tiff(path: str, array: np.ndarray) -> None:
-    from PIL import Image
-
+    """Write `array` as a uint8 TIFF, min-max scaled to 0..255 unless it is
+    uint8 already."""
     arr = np.asarray(array)
     if arr.dtype != np.uint8:
         lo, hi = float(arr.min()), float(arr.max())
         arr = ((arr - lo) / (hi - lo) * 255.0 if hi > lo else arr * 0.0).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    write_tiff(path, arr)
 
 
 def export_predictions(output_dir: str, idx: int, image: np.ndarray,

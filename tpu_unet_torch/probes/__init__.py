@@ -8,22 +8,17 @@ from typing import Callable, Optional
 
 import torch
 
+from tpu_unet_torch.utils.profiling import timeit_readback
+
 
 def log(*args) -> None:
     print(f"[{time.strftime('%H:%M:%S')}]", *args, flush=True)
 
 
 def time_ms(fn: Callable, device: str, reps: int) -> Optional[float]:
-    """ms per call of `fn` with CUDA events after a warm-up; None on the
-    CPU, where nothing is timed."""
+    """ms per call of `fn` with CUDA events around `reps` back-to-back calls
+    after a warm-up (`utils.profiling.timeit_readback`); None on the CPU,
+    where nothing is timed."""
     if device != "cuda":
         return None
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timeit_readback(lambda _: fn(), torch.empty(0, device=device), n=1, reps=reps) * 1e3
