@@ -153,13 +153,33 @@ Phases, each printing its own lines:
      and beside it, with CUDA_VISIBLE_DEVICES='' and no --platform, one that
      must exit non-zero naming --platform cpu. Each run's wall time beside
      the card's name and power limit.
+ 21. the int4 tiers on the weights phase 13 trained: evaluate(quant='int4'
+     and 'int4-phase', quant_path=...) under 'pallas' (calibrated and saved,
+     then served from the .npz) and 'xla': K3 1 (int4, on the sm90 loop,
+     the int8 dec0_conv1) and the k x k kernel 2 (int4-phase) per chunk
+     under 'pallas', none under 'xla', K1 17 + 1 in the calibrating run
+     only; equal metrics across runs; every stage of QuantInference
+     'pallas' vs 'xla' bit for bit; the other tier's .npz refused both ways;
+     the int4 ops (shifted and signed accumulate, u4s epilogue, four
+     quantizers) on the card against CPU copies bit for bit at the 13 int4
+     conv shapes of a 572^2 tile (batch 2); the tier's quality bar
+     (foreground-IoU drop against the bf16 model's under 5%, int4-vs-bf16
+     map IoU above 0.90); evaluate_batch tiles/s of both tiers under both
+     impls beside int8 'pallas', in turns, and a profile of each tier's
+     'pallas' by kernel group;
+ 22. conv_bwd: one DIC-HeLa step at full width (batch 2, conv_impl 'xla')
+     under 'xla', 'mm' and 'auto' from the same weights and batch: equal
+     losses, every gradient within 1e-2 of its norm of 'xla''s in bf16 and
+     within 1e-4 in f32 (TF32 off), the layers 'auto' sends to 'mm' logged;
+     the bf16 step by part under the three, in turns, and a profile of each.
 The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
 interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
 enc0_conv2_stage, enc0_pool_quant_stage) and of the end-to-end paths
 timed in turns (float serving, research 'fused', the 'pallas' train step)
-with their device idle shares, and phase 20's runs; the last line is
+with their device idle shares, phase 20's runs, and phases 21-22's
+results; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -2801,6 +2821,381 @@ def phase20_cli(smi, cfg, served_state):
     return runs, errs
 
 
+# The int4 tiers (phase 21): launches per chunk of each path, under
+# 'pallas' ({kernel: (all, of them on route sm90)}); 'xla' launches none. The
+# int4 convs take the int8 library route under both impls.
+INT4_LAUNCHES = {
+    "int4": {"conv3x3_fused": (1, 1), "conv_kxk_fused": (0, 0)},
+    "int4-phase": {"conv3x3_fused": (0, 0), "conv_kxk_fused": (2, 2)},
+}
+# The tier's own quality bar (tests/test_quant.py's test_int4_iou_vs_bf16):
+# foreground IoU against the ground truth within 5% of the bf16 model's, and
+# foreground IoU of the int4 maps against the bf16 maps above 0.90.
+INT4_IOU_DROP, INT4_AGREE = 0.05, 0.90
+
+
+def _smi_sample() -> str:
+    """The card's SM clock, power draw, temperature and active throttle
+    reasons as nvidia-smi reads them: logged beside a timing window."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (r.stdout or r.stderr).strip()
+
+
+def _fg_iou(pred, ref) -> float:
+    """Foreground IoU of two class maps (1 when both are empty)."""
+    a, b = pred != 0, ref != 0
+    return ((a & b).sum() / max((a | b).sum().item(), 1)).item()
+
+
+def _int4_ops_vs_cpu(cfg, gen):
+    """The int4 helpers on the card against the same calls on CPU copies,
+    bit for bit, at the 13 int4 conv shapes of a 572^2 tile (batch 2): the
+    shifted and the signed accumulate, the u4s epilogue and the four
+    quantizers. Returns the number of calls compared."""
+    from tpu_unet_torch.infer.quant import default_int4_names
+    from tpu_unet_torch.ops import conv_tiles as ct
+
+    names = default_int4_names(cfg)
+    shapes = [sh for sh in conv_shapes(cfg, TILE_IN)[0] if sh[0] in names]
+    if len(shapes) != 13:
+        raise AssertionError(f"{len(shapes)} int4 convs, want 13: {sorted(names)}")
+    n, failed = 0, []
+    cpu = torch.device("cpu")
+    for name, s, cin, cout in shapes:
+        shape = (2, s, s, cin)
+        x4 = torch.randint(-8, 8, shape, generator=gen, device=DEVICE, dtype=torch.int8)
+        w4 = torch.randint(-7, 8, (3, 3, cin, cout), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        xf = torch.rand(shape, generator=gen, device=DEVICE) * 3
+        x8 = torch.randint(0, 128, shape, generator=gen, device=DEVICE, dtype=torch.int8)
+        alpha = torch.rand((cout,), generator=gen, device=DEVICE) * 0.3 / math.sqrt(cin)
+        beta = torch.randn((cout,), generator=gen, device=DEVICE)
+        wf = torch.randn((3, 3, cin, cout), generator=gen, device=DEVICE)
+        calls = {
+            "acc shifted": lambda t: ct.conv3x3_int4_acc(t(x4), t(w4), shifted=True),
+            "acc signed": lambda t: ct.conv3x3_int4_acc(t(x4).clamp(-7, 7), t(w4)),
+            "u4s epilogue": lambda t: ct.int4_epilogue(
+                ct.conv3x3_int4_acc(t(x4), t(w4), shifted=True), t(alpha), t(beta), "u4s"),
+            "quantize_weights_int4": lambda t: ct.quantize_weights_int4(t(wf)),
+            "quantize_activations_u4s": lambda t: ct.quantize_activations_u4s(t(xf), 0.2),
+            "quantize_activations_s4": lambda t: ct.quantize_activations_s4(t(xf) - 1.5, 0.2),
+            "requantize_i8_to_u4s": lambda t: ct.requantize_i8_to_u4s(t(x8), 0.013,
+                                                                      0.013 * 127 / 15),
+            "requantize_u4s_to_i8": lambda t: ct.requantize_u4s_to_i8(t(x4), 0.013 * 127 / 15,
+                                                                      0.013),
+        }
+        for op, call in calls.items():
+            got = call(lambda a: a)
+            want = call(lambda a: a.to(cpu))
+            got, want = (got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,))
+            n += 1
+            if not all(g.device.type == torch.device(DEVICE).type and torch.equal(g.cpu(), w)
+                       for g, w in zip(got, want)):
+                failed.append(f"{op} at {name}")
+        del x4, w4, xf, x8, wf
+    if failed:
+        raise AssertionError(f"int4 ops differ between the card and the CPU: {failed}")
+    return n
+
+
+def phase21_int4(cfg, served_state, data, qp8):
+    """The int4 tiers on the model phase 13 trained: evaluate(quant='int4'
+    and 'int4-phase', quant_path=...) under 'pallas' (calibrated and saved,
+    then served) and 'xla', with launches per chunk (and K1's for the
+    calibration's float forward, counted apart); every stage 'pallas' vs
+    'xla' bit for bit; the .npz round trip and the other tier's refusal;
+    the int4 ops card vs CPU; the tier's quality bar against the bf16
+    model's maps; tiles/s of both tiers under both impls beside int8
+    'pallas', in turns, and a profile of each tier's 'pallas' by kernel
+    group. Returns a summary dict."""
+    from tpu_unet_torch.infer import TileInference, evaluate
+    from tpu_unet_torch.infer.quant import (QuantInference, default_int4_names,
+                                            load_quant_params)
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+
+    t_phase = time.perf_counter()
+    fns = {"conv3x3_bias_relu": conv3x3_bias_relu, "conv3x3_fused": conv3x3_fused,
+           "conv_kxk_fused": conv_kxk_fused}
+    model = UNet(cfg).to(DEVICE)                   # conv_impl 'pallas'
+    model.load_state_dict(served_state)
+    xla = UNet(dataclasses.replace(cfg, conv_impl="xla")).to(DEVICE)
+    xla.load_state_dict(served_state)
+    engine = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT)
+    n_tiles = len(data) * engine.plan.num_tiles
+    n_chunks = -(-n_tiles // engine.batch_tiles)
+    qpath = os.path.join(HERE, "build", "chip_smoke_int4.npz")
+    p8 = os.path.join(HERE, "build", "chip_smoke_int8_tier.npz")
+    for f in (qpath, p8):
+        if os.path.exists(f):
+            os.remove(f)
+    runs, launches, failed = {}, {}, []
+    for tier, impl, m in (("int4", "pallas", model), ("int4", "pallas", model),
+                          ("int4", "xla", xla), ("int4-phase", "pallas", model),
+                          ("int4-phase", "xla", xla)):
+        key = f"{tier} '{impl}'" + (", calibrated" if not os.path.exists(qpath) else "")
+        for fn in fns.values():
+            fn.launches = fn.sm90_launches = 0
+        t0 = time.perf_counter()
+        runs[key] = evaluate(m, data, tile_out=TILE_OUT, verbose=False, quant=tier,
+                             quant_path=qpath)
+        torch.cuda.synchronize()
+        launches[key] = {name: (fn.launches, fn.sm90_launches) for name, fn in fns.items()}
+        log(f"phase 21: evaluate(quant={tier!r}) {key} in {time.perf_counter() - t0:.2f} s: "
+            f"launches (all, sm90) {launches[key]} for {n_tiles} tiles in {n_chunks} "
+            f"chunk(s); {json.dumps(runs[key])}")
+        want = {name: (0, 0) for name in fns}
+        if impl == "pallas":
+            want.update({name: (a * n_chunks, b * n_chunks)
+                         for name, (a, b) in INT4_LAUNCHES[tier].items()})
+        if key.endswith("calibrated"):           # the calibration's float forward
+            want["conv3x3_bias_relu"] = (18, 17)
+        if launches[key] != want:
+            failed.append(f"{key}: launches {launches[key]}, want {want}")
+    metrics = {k: {m: v for m, v in r.items() if m != "seconds"} for k, r in runs.items()}
+    for tier in ("int4", "int4-phase"):
+        same = {json.dumps(v, sort_keys=True) for k, v in metrics.items()
+                if k.startswith(tier + " ")}
+        if len(same) != 1:
+            failed.append(f"{tier}: 'pallas', 'xla', calibrated and served metrics differ: "
+                          f"{metrics}")
+    if not all(np.isfinite(v["iou_mean"]) for v in metrics.values()):
+        failed.append(f"non-finite metrics {metrics}")
+    qp4 = load_quant_params(qpath)
+    if qp4.q4names != default_int4_names(cfg) or qp4.qnames != {"dec0_conv1"}:
+        failed.append(f"the .npz holds int4 {sorted(qp4.q4names)}, int8 {sorted(qp4.qnames)}")
+    # the other tier's file is refused, both ways
+    evaluate(model, data, tile_out=TILE_OUT, verbose=False, quant="int8", quant_path=p8)
+    for tier, path in (("int4", p8), ("int8", qpath)):
+        try:
+            evaluate(model, data, tile_out=TILE_OUT, verbose=False, quant=tier, quant_path=path)
+            failed.append(f"quant={tier!r} served the other tier's file {path}")
+        except ValueError as e:
+            log(f"phase 21: quant={tier!r} with the other tier's file: ValueError ({e})")
+
+    tiles = engine._flat_tiles(engine._on_device(data.images[:1], torch.float32))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the float layers run twice
+    qis = {}
+    for tier, phase in (("int4", None), ("int4-phase", "int8")):
+        qis[tier] = {impl: QuantInference(qp4, impl=impl, phase_level0=phase, device=DEVICE)
+                     for impl in ("pallas", "xla")}
+        n_int, differ = 0, []
+        for stage in QUANT_STAGES + [None]:
+            got = qis[tier]["pallas"].apply(tiles, stop_after=stage)
+            n_int += got.dtype == torch.int8
+            if not torch.equal(got, qis[tier]["xla"].apply(tiles, stop_after=stage)):
+                differ.append(stage)
+        log(f"phase 21: {tier} QuantInference 'pallas' vs 'xla' at all {len(QUANT_STAGES)} "
+            f"stages ({n_int} integer) and the logits on image 0's {tiles.shape[0]} tiles: "
+            f"{'equal' if not differ else f'differ at {differ}'}")
+        failed += [f"{tier} 'pallas' and 'xla' differ at {st}" for st in differ]
+    torch.backends.cudnn.deterministic = deterministic
+
+    t0 = time.perf_counter()
+    n_ops = _int4_ops_vs_cpu(cfg, torch.Generator(device=DEVICE).manual_seed(21))
+    log(f"phase 21: {n_ops} int4 op calls at the 13 int4 conv shapes (batch 2) equal on the "
+        f"card and the CPU, bit for bit, in {time.perf_counter() - t0:.1f} s")
+
+    images = torch.from_numpy(data.images).to(DEVICE)
+    lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
+
+    def make(apply_fn=None):
+        return TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT, apply_fn=apply_fn)
+
+    engines = {"int4 'pallas'": make(qis["int4"]["pallas"].apply),
+               "int4 'xla'": make(qis["int4"]["xla"].apply),
+               "int4-phase 'pallas'": make(qis["int4-phase"]["pallas"].apply),
+               "int4-phase 'xla'": make(qis["int4-phase"]["xla"].apply),
+               "int8 'pallas'": make(QuantInference(qp8, impl="pallas", device=DEVICE).apply),
+               "bf16 'pallas'": make()}
+    preds = {k: e.evaluate_batch(images, lab)[1] for k, e in engines.items()}
+    quality = {"bf16_fg_iou": _fg_iou(preds["bf16 'pallas'"], lab)}
+    for tier in ("int4", "int4-phase"):
+        q = {"fg_iou": _fg_iou(preds[f"{tier} 'pallas'"], lab),
+             "fg_iou_vs_bf16": _fg_iou(preds[f"{tier} 'pallas'"], preds["bf16 'pallas'"])}
+        q["fg_iou_drop"] = (quality["bf16_fg_iou"] - q["fg_iou"]) / quality["bf16_fg_iou"]
+        quality[tier] = q
+        log(f"phase 21: {tier} quality on the {len(data)} serving images: foreground IoU "
+            f"{q['fg_iou']:.6f} against the bf16 model's {quality['bf16_fg_iou']:.6f} (drop "
+            f"{q['fg_iou_drop']:.4%}, bar {INT4_IOU_DROP:.0%}); int4 maps vs bf16 maps "
+            f"foreground IoU {q['fg_iou_vs_bf16']:.6f} (bar {INT4_AGREE})")
+        if not (q["fg_iou_drop"] < INT4_IOU_DROP and q["fg_iou_vs_bf16"] > INT4_AGREE):
+            failed.append(f"{tier} quality {q}")
+    del engines["bf16 'pallas'"]
+
+    times = {k: [] for k in engines}
+    order = list(engines)
+    for turn in range(3):                  # in turns: forward, reversed, forward
+        log(f"phase 21: timing turn {turn}: nvidia-smi (SM clock, power, temperature, "
+            f"throttle reasons) {_smi_sample()}")
+        for key in order if turn != 1 else order[::-1]:
+            times[key].append(time_ms(lambda: engines[key].evaluate_batch(images, lab),
+                                      DEVICE, 3))
+    log(f"phase 21: after the turns: nvidia-smi {_smi_sample()}")
+    tiles_s = {}
+    for key, ts in times.items():
+        ms = sum(ts) / len(ts)
+        tiles_s[key] = n_tiles / (ms / 1e3)
+        tiles_s[f"{key} ms"] = ms
+        log(f"phase 21: evaluate_batch {key}: {ms:.2f} ms for {n_tiles} tiles of "
+            f"{TILE_IN}^2 = {tiles_s[key]:.1f} tiles/s (runs {[round(t, 3) for t in ts]})")
+    n = 3
+    for key, need in (("int4 'pallas'", "K3 conv3x3_fused"),
+                      ("int4-phase 'pallas'", "k x k conv_kxk_fused")):
+        window, busy, groups, top = _profile(lambda r: engines[key].evaluate_batch(images, lab),
+                                             n)
+        tiles_s[f"{key} profiled_idle_share"] = 1.0 - busy / window
+        tiles_s[f"{key} profiled_ms_per_call"] = {
+            "device_busy": busy / n, **{g: ms / n for g, ms in groups.items()}}
+        log(f"phase 21: profile of {n} evaluate_batch calls {key}: window {window / n:.3f} "
+            f"ms/call, device busy {busy / n:.3f} ms/call; by group (ms/call): "
+            + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
+        for name, ms in top:
+            log(f"phase 21:   {ms / n:9.3f} ms/call  {name[:110]}")
+        _require_groups(groups, need, "cuDNN/cuBLAS conv and GEMM")
+    if failed:
+        raise AssertionError(f"phase 21 failed: {failed}")
+    log(f"phase 21: ok in {time.perf_counter() - t_phase:.1f} s")
+    calib = launches["int4 'pallas', calibrated"]
+    return {"tiles_per_s": tiles_s, "quality": quality, "metrics": metrics,
+            "launches": {"serve_int4": launches["int4 'pallas'"]["conv3x3_fused"],
+                         "serve_int4_phase": launches["int4-phase 'pallas'"]["conv_kxk_fused"],
+                         "serve_int4_calibration": calib["conv3x3_bias_relu"]},
+            "cpu_compared_calls": n_ops}
+
+
+# conv_bwd (phase 22): the gradient bars against 'xla', by compute dtype
+CONV_BWD_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def _step_grads(model, inp, gt, w):
+    """(loss, {name: gradient}) of one DIC-HeLa loss on (inp, gt, w)."""
+    from tpu_unet_torch.losses.bce import weighted_bce_with_logits
+    from tpu_unet_torch.models import center_crop_or_pad
+
+    model.zero_grad(set_to_none=True)
+    loss = weighted_bce_with_logits(center_crop_or_pad(model(inp), gt.shape[1:3]), gt, w)
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def phase22_conv_bwd(cfg):
+    """One DIC-HeLa train step at full width (batch 2, conv_impl 'xla') under
+    conv_bwd 'xla', 'mm' and 'auto' from the same weights and batch: equal
+    losses, every gradient within CONV_BWD_GRAD_TOL of its norm of 'xla''s
+    (bf16; and f32 with TF32 off), the layers 'auto' sends to 'mm' logged;
+    then the bf16 step's time by part under the three, in turns, and a
+    profile of each. Returns a summary dict."""
+    from tpu_unet_torch.config import DATASETS, OptimConfig
+    from tpu_unet_torch.data.augment import AugmentPipeline
+    from tpu_unet_torch.losses.weights import make_weight_fn
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.models import unet as unet_mod
+    from tpu_unet_torch.train import make_optimizer
+
+    t_phase = time.perf_counter()
+    inp, gt = _batch(AugmentPipeline(DATASETS["DIC-C2DH-HeLa"].augment()), _train_data(), 22)
+    with torch.no_grad():
+        w = make_weight_fn("distance")(gt)
+    by_shape = {(s, cin): name for name, s, cin, _ in conv_shapes(cfg, inp.shape[1])[0]}
+    routed = []
+    real = unet_mod.conv3x3_bias
+
+    def recording(x, k, b, **kw):
+        routed.append(by_shape[(x.shape[1], x.shape[-1])])
+        return real(x, k, b, **kw)
+
+    out, failed = {"auto_mm_layers": None, "grad_rel_err": {}, "loss": {}}, []
+    deterministic = torch.backends.cudnn.deterministic
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    unet_mod.conv3x3_bias = recording
+    try:
+        for dtype in ("bfloat16", "float32"):
+            # the f32 bar holds with TF32 off, whatever the caller set
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+                tf32 if dtype == "bfloat16" else (False, False))
+            grads = {}
+            for bwd in ("xla", "mm", "auto"):
+                c = dataclasses.replace(cfg, conv_impl="xla", compute_dtype=dtype, conv_bwd=bwd)
+                model = UNet(c, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+                routed.clear()
+                out["loss"][f"{dtype} {bwd}"], grads[bwd] = _step_grads(model, inp, gt, w)
+                if bwd == "auto" and dtype == "bfloat16":
+                    out["auto_mm_layers"] = list(routed)
+                if bwd == "mm" and dtype == "bfloat16":
+                    out["mm_layers"] = len(routed)
+                del model
+            for bwd in ("mm", "auto"):
+                err = max(((grads[bwd][n] - g).float().norm()
+                           / g.float().norm().clamp_min(1e-30)).item()
+                          for n, g in grads["xla"].items())
+                out["grad_rel_err"][f"{dtype} {bwd}"] = err
+                if not (err <= CONV_BWD_GRAD_TOL[dtype]
+                        and out["loss"][f"{dtype} {bwd}"] == out["loss"][f"{dtype} xla"]):
+                    failed.append(f"{dtype} {bwd}: loss {out['loss']}, gradient error {err}")
+            del grads
+    finally:
+        unet_mod.conv3x3_bias = real
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 22: one DIC-HeLa step (batch 2, {inp.shape[1]}^2, 'xla'): losses {out['loss']}; "
+        f"worst gradient error in norm against 'xla' {out['grad_rel_err']} (bars "
+        f"{CONV_BWD_GRAD_TOL}); 'mm' routes {out['mm_layers']} convs, 'auto' routes "
+        f"{out['auto_mm_layers']}")
+
+    size = inp.shape[1]
+    parts_in = _train_parts()
+    models = {}
+    for bwd in ("xla", "mm", "auto"):
+        m = UNet(dataclasses.replace(cfg, conv_impl="xla", conv_bwd=bwd),
+                 generator=torch.Generator().manual_seed(0)).to(DEVICE)
+        models[bwd] = (m, make_optimizer(m.parameters(), OptimConfig()))
+    parts = ("augment", "weights", "fwd_bwd", "optimizer")
+    steps, reps = {}, 6
+    log(f"phase 22: before the turns: nvidia-smi {_smi_sample()}")
+    for bwd in ("xla", "mm", "auto", "auto", "mm", "xla"):
+        ev = {k: _events() for k in parts}
+        acc = dict.fromkeys(parts, 0.0)
+        for r in range(reps + 1):             # the first is a warm-up
+            _train_step(*models[bwd], parts_in, r, lambda k, i: ev[k][i].record())
+            torch.cuda.synchronize()
+            if r:
+                for k in parts:
+                    acc[k] += ev[k][0].elapsed_time(ev[k][1]) / reps
+        steps.setdefault(bwd, []).append(acc)
+    step_ms = {}
+    for bwd, runs in steps.items():
+        mean = {k: sum(r[k] for r in runs) / len(runs) for k in parts}
+        step_ms[bwd] = {**mean, "step": sum(mean.values())}
+        log(f"phase 22: train step conv_bwd={bwd!r} (bf16, batch 2, {size}^2, 'xla'): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms[bwd].items())
+            + f" (runs {[round(sum(r.values()), 3) for r in runs]})")
+    n = 3
+    for bwd in ("xla", "mm", "auto"):
+        window, busy, groups, top = _profile(lambda r: _train_step(*models[bwd], parts_in, r), n)
+        step_ms[bwd]["profiled_busy_ms"] = busy / n
+        step_ms[bwd]["profiled_ms_per_step"] = {g: ms / n for g, ms in groups.items()}
+        log(f"phase 22: profile of {n} steps conv_bwd={bwd!r}: window {window / n:.3f} ms/step, "
+            f"device busy {busy / n:.3f} ms/step; by group (ms/step): "
+            + ", ".join(f"{g} {ms / n:.3f}" for g, ms in groups.items() if ms))
+        for name, ms in top[:4]:
+            log(f"phase 22:   {ms / n:9.3f} ms/step  {name[:110]}")
+    del models
+    if failed:
+        raise AssertionError(f"phase 22 failed: {failed}")
+    log(f"phase 22: ok in {time.perf_counter() - t_phase:.1f} s")
+    out["step_ms"] = step_ms
+    return out
+
+
 # (name, source, the TPU kernel it replaces, the formulation it runs on)
 RESEARCH_KERNELS = [
     ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
@@ -2943,6 +3338,8 @@ def main() -> None:
     gather_err, gather_ms, gather_probe, gather_launches = phase18_gather()
     stage_errs, stage_ms, mosaic_probe, stage_launches = phase19_enc0_stages()
     cli_runs, cli_errs = phase20_cli(smi, cfg, served_state)
+    int4 = phase21_int4(cfg, served_state, data, qp)
+    conv_bwd = phase22_conv_bwd(cfg)
     cli_launches = {name: {k: v[0] for k, v in r["launches"].items()}
                     for name, r in cli_runs.items() if "launches" in r}
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
@@ -2964,7 +3361,9 @@ def main() -> None:
         "launches_by_path": {"serve": sum(serve_launches.values()),
                              "train": launches["conv3x3_bias_relu"],
                              "cli_test_pallas": cli_launches["TESTING pallas bf16"][
-                                 "conv3x3_bias_relu"]},
+                                 "conv3x3_bias_relu"],
+                             "serve_int4_calibration": int4["launches"][
+                                 "serve_int4_calibration"][0]},
         "launches_by_route": {"serve": serve_launches,
                               "train": {"sm90": launches["conv3x3_bias_relu_sm90"],
                                         "simple": launches["conv3x3_bias_relu"]
@@ -3026,9 +3425,13 @@ def main() -> None:
                              "cli_test_pallas_int8": cli_launches["TESTING pallas int8"][
                                  "conv3x3_fused"],
                              "cli_test_pallas_int8_phase": cli_launches[
-                                 "TESTING pallas int8-phase"]["conv3x3_fused"]},
+                                 "TESTING pallas int8-phase"]["conv3x3_fused"],
+                             "serve_int4": int4["launches"]["serve_int4"][0]},
         "launches_by_route": {
             "serve_int8": int8_launches,
+            "serve_int4": {"sm90": int4["launches"]["serve_int4"][1],
+                           "simple": int4["launches"]["serve_int4"][0]
+                           - int4["launches"]["serve_int4"][1]},
             "serve_int8_phase": _by_route(phase_launches, "conv3x3_fused"),
             **{f"serve_int8_research_{k}": _by_route(v, "conv3x3_fused")
                for k, v in research_launches.items()}},
@@ -3055,7 +3458,8 @@ def main() -> None:
         "launches_by_path": {"serve_int8_phase": phase_launches["conv_kxk_fused"],
                              "probe": probe_launches,
                              "cli_test_pallas_int8_phase": cli_launches[
-                                 "TESTING pallas int8-phase"]["conv_kxk_fused"]},
+                                 "TESTING pallas int8-phase"]["conv_kxk_fused"],
+                             "serve_int4_phase": int4["launches"]["serve_int4_phase"][0]},
         "launches_by_route": {"serve_int8_phase": _by_route(phase_launches, "conv_kxk_fused")},
         "ms_by_route": {"sm90": kxk_ms["kernel"], "simple": kxk_ms["simple"]},
         "per_shape": kxk_ms["per_shape"],
@@ -3090,7 +3494,8 @@ def main() -> None:
         "end_to_end": end_to_end(tiles_s, research_tiles_s, step_ms),
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
         "phase_level0_train_step_ms": phase_train_ms,
-        "cli_runs": cli_runs, "cli_served_logits_max_abs_err": cli_errs["served_logits"]}),
+        "cli_runs": cli_runs, "cli_served_logits_max_abs_err": cli_errs["served_logits"],
+        "int4": int4, "conv_bwd": conv_bwd}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,10 @@ from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.convert import NAME_MAP, load_reference_checkpoint
 from tpu_unet_torch.data import synthetic_dataset
 from tpu_unet_torch.data.tiff import read_tiff
-from tpu_unet_torch.infer import TileInference
+from tpu_unet_torch.infer import TileInference, evaluate
 from tpu_unet_torch.models import UNet
 from tpu_unet_torch.train import Trainer
+from tpu_unet_torch.train.checkpoint import Checkpointer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--platform", "cpu"]
@@ -159,9 +160,17 @@ def test_compile_cache_flags_are_accepted_and_ignored(trained, tmp_path):
 
 @pytest.mark.parametrize("quant", ["int4", "int4-phase"])
 def test_int4_raises_naming_the_roadmap_item(trained, quant):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["-m", "TESTING", "-d", "synthetic", "-n", trained, "--quiet",
-                  "--quant", quant] + CPU)
+    """The int4 tiers (ROADMAP item 10, ported) serve through TESTING: exit
+    0, and the metrics evaluate(quant=...) gives on the restored model (the
+    stored config, with the CLI's default --phase-level0)."""
+    assert cli.main(["-m", "TESTING", "-d", "synthetic", "-n", trained, "--quiet",
+                     "--quant", quant] + CPU) == 0
+    state, host = Checkpointer(os.path.dirname(trained)).restore(os.path.basename(trained))
+    model = UNet(ModelConfig(**{**host["model_cfg"], "phase_level0": True}))
+    model.load_state_dict(state["model"])
+    want = evaluate(model, synthetic_dataset(**FIXTURE), verbose=False, quant=quant)
+    np.testing.assert_array_equal(np.loadtxt(trained + "_test/test_iou.out"),
+                                  [want["iou_mean"], want["iou_std"]])
 
 
 def test_pallas_checkpoint_with_phase_level0_raises_in_both_clis(trained, tmp_path):

@@ -4,7 +4,9 @@ pass), K3 (the fused int8/bf16 conv of quantized serving), K4, K5 and
 K6a-c (the fused enc0 chain, the fused concat + requantize and the pairing
 copies of the research int8 forward), the fused k x k int8 conv of the
 phase-packed level 0, the row gather of the gather probe and the three
-enc0 stage kernels of the Mosaic probes. These tests import no JAX (the
+enc0 stage kernels of the Mosaic probes; and the library-route modules of
+the int4 tier and of the matmul conv backward, card against CPU. These
+tests import no JAX (the
 machine with the card has none) and skip without a CUDA device. Run them
 on the card with
 
@@ -25,6 +27,8 @@ from tpu_unet_torch.ops.conv_kxk import (_conv_kxk_route_forward, conv2x2_fused,
 from tpu_unet_torch.ops.conv_tiles import (_conv3x3_fused_route_forward, conv3x3_fused,
                                            conv3x3_fused_plain, conv3x3_fused_route,
                                            conv3x3_int8_xla)
+from tpu_unet_torch.ops import conv_bwd
+from tpu_unet_torch.ops import conv_tiles as ct
 from tpu_unet_torch.ops import enc0_stages as st
 from tpu_unet_torch.ops import edt_pallas
 from tpu_unet_torch.ops.edt import edt_batch
@@ -1030,3 +1034,88 @@ def test_staged_chain_matches_enc0_chain(cuda, shape, c):
     torch.cuda.synchronize()
     assert torch.equal(s_pooled, pooled)
     assert (s_skip.float() - skip.float()).abs().max().item() <= 1
+
+
+# --- the int4 tier and the matmul conv backward (library routes) -------------
+
+@pytest.mark.parametrize("shape,cout", [((2, 30, 30, 128), 128), ((1, 17, 23, 48), 24),
+                                        ((2, 12, 14, 1024), 16)])
+def test_int4_ops_on_the_card_equal_the_cpu(cuda, shape, cout):
+    """The int4 helpers on CUDA tensors (the accumulate on the int8 library
+    route) against the same calls on CPU copies, bit for bit: the shifted
+    and signed accumulates, the u4s epilogue and the four quantizers."""
+    g = torch.Generator().manual_seed(3)
+    x4 = torch.randint(-8, 8, shape, generator=g, dtype=torch.int8)
+    w4 = torch.randint(-7, 8, (3, 3, shape[-1], cout), generator=g, dtype=torch.int8)
+    alpha = torch.rand(cout, generator=g) * 0.05
+    beta = torch.randn(cout, generator=g)
+    xf = torch.rand(shape, generator=g) * 3
+    x8 = torch.randint(0, 128, shape, generator=g, dtype=torch.int8)
+    calls = [
+        lambda d: ct.conv3x3_int4_acc(x4.to(d), w4.to(d), shifted=True),
+        lambda d: ct.conv3x3_int4_acc(x4.clamp(-7, 7).to(d), w4.to(d)),
+        lambda d: ct.conv3x3_int4_xla(x4.to(d), w4.to(d), alpha.to(d), beta.to(d),
+                                      out_kind="u4s", shifted=True),
+        lambda d: ct.quantize_weights_int4(w4.float().to(d) * 0.01)[0],
+        lambda d: ct.quantize_activations_u4s(xf.to(d), 0.2),
+        lambda d: ct.quantize_activations_s4(xf.to(d) - 1.5, 0.2),
+        lambda d: ct.requantize_i8_to_u4s(x8.to(d), 0.013, 0.013 * 127 / 15),
+        lambda d: ct.requantize_u4s_to_i8(x4.to(d), 0.013 * 127 / 15, 0.013),
+    ]
+    for k, call in enumerate(calls):
+        got, want = call(cuda), call(torch.device("cpu"))
+        assert got.device.type == cuda.type and got.dtype == want.dtype, k
+        assert torch.equal(got.cpu(), want), k
+
+
+@pytest.mark.parametrize("phase_level0", [None, "int8"])
+def test_int4_engine_on_the_card(cuda, phase_level0):
+    """A narrow int4 engine (min_channels 16) on the card: 'pallas' (K3 on
+    the int8 dec0_conv1, or the k x k kernel twice under int4-phase) equals
+    'xla' at the int4 stages and in the logits."""
+    from tpu_unet_torch.infer.quant import (QuantInference, add_concat_scales,
+                                            calibrate, default_int4_names,
+                                            default_quant_names, prepare_quant_params)
+
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.rand((2, 188, 204, 1), generator=torch.Generator().manual_seed(1))
+    scales = add_concat_scales(cfg, calibrate(model, x))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16),
+                              q4names=default_int4_names(cfg, 16))
+    engines = {impl: QuantInference(qp, impl=impl, phase_level0=phase_level0, device=cuda)
+               for impl in ("pallas", "xla")}
+    before = conv3x3_fused.launches, conv_kxk_fused.launches
+    logits = engines["pallas"].apply(x.to(cuda))
+    got = conv3x3_fused.launches - before[0], conv_kxk_fused.launches - before[1]
+    assert got == ((1, 0) if phase_level0 is None else (0, 2))
+    assert torch.isfinite(logits).all() and torch.equal(logits, engines["xla"].apply(x.to(cuda)))
+    for stage in ("enc1_conv2", "enc2_conv1", "pool2", "bottleneck_conv2", "dec3_conv1",
+                  "dec1_conv2"):
+        a = engines["pallas"].apply(x.to(cuda), stop_after=stage)
+        assert a.dtype == torch.int8, stage
+        assert torch.equal(a, engines["xla"].apply(x.to(cuda), stop_after=stage)), stage
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wgrad,dgrad", [("mm", "xla"), ("xla", "mm"), ("mm", "mm")])
+def test_conv3x3_bias_matches_autograd_on_the_card(cuda, dtype, wgrad, dgrad):
+    """conv3x3_bias on the card: the forward equals F.conv2d with the bias
+    bit for bit; each gradient within 1e-4 of its norm of autograd's in f32
+    (TF32 off), within 1e-2 in bf16 (one rounding against the library's)."""
+    x, w, b = _inputs((2, 40, 44, 64), 32, dtype, cuda, seed=4)
+    g = torch.randn((2, 38, 42, 32), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = conv_bwd.conv3x3_bias(*leaves, wgrad=wgrad, dgrad=dgrad)
+    refs = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = torch.nn.functional.conv2d(refs[0].permute(0, 3, 1, 2), refs[1].permute(3, 2, 0, 1),
+                                     refs[2]).permute(0, 2, 3, 1)
+    assert torch.equal(y.detach(), ref.detach())
+    y.backward(g)
+    ref.backward(g)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in zip(leaves, refs):
+        assert got.grad.dtype == dtype
+        err = ((got.grad.float() - want.grad.float()).norm() / want.grad.float().norm()).item()
+        assert err <= tol, err

@@ -107,11 +107,12 @@ def test_evaluate_groups_shapes_and_rejects_quant(pallas_models):
     data.targets = [data.targets[0], data.targets[1][:, :80]]
     result = evaluate(model, data, tile_out=TILE_OUT, verbose=False)
     assert result["num_images"] == 2 and np.isfinite(result["pe_mean"])
-    # int8 serving takes both shape groups too; the tiers not ported raise
-    result = evaluate(model, data, tile_out=TILE_OUT, verbose=False, quant="int8")
-    assert result["num_images"] == 2 and np.isfinite(result["pe_mean"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        evaluate(model, data, quant="int4", verbose=False)
+    # int8 and int4 serving take both shape groups too; an unknown tier raises
+    for quant in ("int8", "int4"):
+        result = evaluate(model, data, tile_out=TILE_OUT, verbose=False, quant=quant)
+        assert result["num_images"] == 2 and np.isfinite(result["pe_mean"])
+    with pytest.raises(ValueError, match="quant must be"):
+        evaluate(model, data, quant="int2", verbose=False)
 
 
 def test_synthetic_dataset_matches_jax():

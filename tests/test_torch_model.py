@@ -176,13 +176,20 @@ def test_rejects_invalid_input_size():
     ("conv_bwd", "mm", "item 13"),
 ])
 def test_unported_options_raise(field, value, item):
-    """conv_bwd 'mm'/'auto' raise, naming their ROADMAP item; phase_level0
-    (item 8) is ported: it builds under conv_impl='xla', gives the plain
-    model's logits from the same weights, and refuses 'pallas' as JAX does."""
+    """The options the port once lacked (`item`: the ROADMAP queue-1 item
+    that ported them) build. conv_bwd 'mm'/'auto' give the 'xla' model's
+    logits from the same weights bit for bit (only the backward changes;
+    tests/test_torch_conv_bwd.py holds the gradients), and an unknown value
+    raises as JAX's does; phase_level0 builds under conv_impl='xla', gives
+    the plain model's logits, and refuses 'pallas' as JAX does."""
     cfg = ModelConfig(base_width=2, **{field: value})
     if field != "phase_level0":
-        with pytest.raises(NotImplementedError, match=item):
-            UNet(cfg)
+        model, plain = UNet(cfg), UNet(dataclasses.replace(cfg, conv_bwd="xla"))
+        plain.load_state_dict(model.state_dict())
+        x = torch.from_numpy(np.random.RandomState(0).rand(1, 188, 188, 1).astype(np.float32))
+        assert torch.equal(model(x), plain(x))
+        with pytest.raises(ValueError, match="conv_bwd must be"):
+            UNet(dataclasses.replace(cfg, conv_bwd="pallas"))
         return
     model, plain = UNet(cfg), UNet(dataclasses.replace(cfg, phase_level0=False))
     plain.load_state_dict(model.state_dict())

@@ -6,6 +6,9 @@ every stage of the quantized forward, and the .npz files in both
 directions. evaluate(quant='int8') is held in test_torch_quant_eval.py."""
 
 import dataclasses
+import inspect
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -338,6 +341,31 @@ STAGES = ([f"enc{d}_conv{i}" for d in range(4) for i in (1, 2)]
           + [f"dec{d}_conv{i}" for d in range(4) for i in (1, 2)])
 
 
+def one_forward(qi, x):
+    """Every stage of one forward of the engine `qi` (either package's) and
+    its logits. Both engines' apply(stop_after=) call an inner
+    ``cut(name, t)`` after each stage and return `t` where the name matches:
+    a profile hook on that code object records each (name, t), and a stop
+    name no stage has lets the forward run to the logits. This reads what
+    apply(x, stop_after=name) returns, from one forward instead of one per
+    stage."""
+    cut = next(c for c in inspect.unwrap(type(qi).apply).__code__.co_consts
+               if isinstance(c, types.CodeType) and c.co_name == "cut")
+    seen = {}
+
+    def hook(frame, event, _):
+        if event == "call" and frame.f_code is cut:
+            t = frame.f_locals["t"]
+            seen[frame.f_locals["name"]] = t.clone() if isinstance(t, torch.Tensor) else t
+
+    sys.setprofile(hook)
+    try:
+        logits = qi.apply(x, stop_after="no such stage")
+    finally:
+        sys.setprofile(None)
+    return seen, logits
+
+
 @pytest.fixture(scope="module")
 def jax_stages(nets, qparams):
     """JAX's impl='xla' outputs at every stage and the logits, per skip
@@ -347,9 +375,9 @@ def jax_stages(nets, qparams):
     for skip in ("paper", "parity"):
         jqp = dataclasses.replace(qparams[0], cfg=dataclasses.replace(
             qparams[0].cfg, skip_variant=skip))
-        qi = jq.QuantInference(jqp, impl="xla")
-        out[skip] = {st: np.asarray(qi.apply(x, stop_after=st)) for st in STAGES}
-        out[skip]["logits"] = np.asarray(qi.apply(x))
+        seen, logits = one_forward(jq.QuantInference(jqp, impl="xla"), x)
+        out[skip] = {st: np.asarray(seen[st]) for st in STAGES}
+        out[skip]["logits"] = np.asarray(logits)
     return out
 
 
@@ -364,16 +392,17 @@ def test_every_stage_matches_jax(nets, qparams, jax_stages, skip, impl):
     qi = tq.QuantInference(tqp, impl=impl, device="cpu")
     x = torch.from_numpy(nets["x"])
     n_int8 = 0
+    seen, logits = one_forward(qi, x)
+    assert torch.equal(qi.apply(x, stop_after="pool1"), seen["pool1"])
     for st in STAGES:
         want = jax_stages[skip][st]
-        got = qi.apply(x, stop_after=st)
+        got = seen[st]
         assert got.shape == want.shape, st
         if want.dtype == np.int8:
             n_int8 += 1
             assert got.dtype == torch.int8, st
         np.testing.assert_array_equal(_np(got), _jnp(want), err_msg=st)
     assert n_int8 >= 12
-    logits = qi.apply(x)
     assert logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), jax_stages[skip]["logits"],
                                rtol=1e-4, atol=1e-5)
@@ -382,7 +411,8 @@ def test_every_stage_matches_jax(nets, qparams, jax_stages, skip, impl):
 def test_forward_options(nets, qparams, jax_stages):
     """upconv_impl='matmul', a per-layer route mix and block_rows given: the
     same logits as the default engine; phase_level0 serves (held to JAX's
-    phase engine in test_torch_quant_phase.py); the int4 tier raises."""
+    phase engine in test_torch_quant_phase.py); so does the int4 tier (held
+    to JAX's in test_torch_int4.py), which takes precedence over int8."""
     x = torch.from_numpy(nets["x"])
     want = jax_stages["paper"]["logits"]
     tqp = qparams[1]
@@ -395,14 +425,14 @@ def test_forward_options(nets, qparams, jax_stages):
     for mode in ("bf16", "int8"):         # item 8, ported: the phase engine
         got = tq.QuantInference(tqp, phase_level0=mode, device="cpu").apply(x).numpy()
         assert got.shape == want.shape and np.isfinite(got).all()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tq.QuantInference(dataclasses.replace(tqp, q4names=frozenset({"dec1_conv1"})),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tq.prepare_quant_params(nets["cfg"], nets["params"], tqp.scales,
-                                q4names=frozenset({"dec1_conv1"}))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tq.build_quant_inference(nets["bfloat16"], x, int4=True)
+    q4 = tq.prepare_quant_params(nets["cfg"], nets["params"], tqp.scales, tqp.qnames,
+                                 q4names=frozenset({"dec1_conv1"}))
+    assert q4.q4names == {"dec1_conv1"} and set(q4.q4conv) == {"dec1_conv1"}
+    assert q4.qnames == tqp.qnames - {"dec1_conv1"}
+    got = tq.QuantInference(q4, device="cpu").apply(x).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    qi = tq.build_quant_inference(nets["bfloat16"], x, int4=True)
+    assert qi.qp.q4names == tq.default_int4_names(nets["cfg"])
     qi = tq.build_quant_inference(nets["bfloat16"], x, phase_level0="int8")
     assert qi.phase_level0 == "int8" and qi.device == torch.device("cpu")
 
@@ -430,5 +460,8 @@ def test_npz_crosses_both_ways(nets, qparams, jax_stages, tmp_path):
     j4 = jq.prepare_quant_params(jqp.cfg, nets["params"], jqp.scales, jqp.qnames,
                                  q4names=frozenset({"dec1_conv1"}))
     jq.save_quant_params(str(tmp_path / "int4.npz"), j4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tq.load_quant_params(str(tmp_path / "int4.npz"))
+    t4 = tq.load_quant_params(str(tmp_path / "int4.npz"))     # and it serves
+    assert t4.q4names == {"dec1_conv1"} and t4.qnames == j4.qnames
+    np.testing.assert_array_equal(t4.q4conv["dec1_conv1"][0].numpy(),
+                                  np.asarray(j4.q4conv["dec1_conv1"][0]))
+    assert tq.QuantInference(t4, device="cpu").apply(torch.from_numpy(x)).isfinite().all()

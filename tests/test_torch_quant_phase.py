@@ -25,7 +25,7 @@ from tpu_unet_torch.ops import conv_kxk
 from tpu_unet_torch.ops import conv_tiles as tct
 from tpu_unet_torch.train import Trainer
 from tests.test_torch_model import jax_config
-from tests.test_torch_quant import _jnp, _np, nets, qparams  # noqa: F401 (fixtures)
+from tests.test_torch_quant import _jnp, _np, nets, one_forward, qparams  # noqa: F401 (fixtures)
 
 # level 0's stages (returned packed) and a few beyond it
 STAGES = ["enc0_conv1", "enc0_conv2", "pool0", "enc1_conv2", "bottleneck_conv2", "up1",
@@ -203,9 +203,10 @@ def jax_phase(nets, qparams):
     x = jnp.asarray(_rect(nets))
     out = {}
     for mode in ("bf16", "int8"):
-        qi = jq.QuantInference(qparams[0], impl="xla", phase_level0=mode)
-        out[mode] = {st: np.asarray(qi.apply(x, stop_after=st)) for st in STAGES}
-        out[mode]["logits"] = np.asarray(qi.apply(x))
+        seen, logits = one_forward(jq.QuantInference(qparams[0], impl="xla",
+                                                     phase_level0=mode), x)
+        out[mode] = {st: np.asarray(seen[st]) for st in STAGES}
+        out[mode]["logits"] = np.asarray(logits)
     return out
 
 
@@ -220,9 +221,10 @@ def test_phase_engine_matches_jax(nets, qparams, jax_phase, mode, impl):
     qi = tq.QuantInference(qparams[1], impl=impl, phase_level0=mode, device="cpu")
     x = torch.from_numpy(_rect(nets))
     n_int8 = 0
+    seen, logits = one_forward(qi, x)
     for st in STAGES:
         want = jax_phase[mode][st]
-        got = qi.apply(x, stop_after=st)
+        got = seen[st]
         assert got.shape == want.shape, st
         if want.dtype == np.int8:
             n_int8 += 1
@@ -231,7 +233,6 @@ def test_phase_engine_matches_jax(nets, qparams, jax_phase, mode, impl):
     w0 = nets["cfg"].widths[0]
     assert qi.apply(x, stop_after="enc0_conv2").shape == (2, 92, 100, 4 * w0)   # packed
     assert n_int8 == (6 if mode == "int8" else 3)
-    logits = qi.apply(x)
     assert logits.shape == (2, 4, 20, 2)
     np.testing.assert_allclose(logits.numpy(), jax_phase[mode]["logits"], rtol=1e-4, atol=1e-5)
 

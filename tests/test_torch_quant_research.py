@@ -121,10 +121,12 @@ def test_odd_batch_and_flags_off_are_the_production_forward(nets, qparams):
 def test_flags_refuse_what_they_do_not_compose_with(nets, qparams):
     """The research flags with phase_level0 or with int4 raise ValueError as
     JAX's class does; phase_level0 alone serves the production phase engine,
-    int4 alone raises the parent's NotImplementedError (ROADMAP item 10);
-    enc0_chain's options are checked when they reach it."""
+    and int4 alone the production int4 forward; enc0_chain's options are
+    checked when they reach it."""
     tqp = qparams[1]
-    q4 = dataclasses.replace(tqp, q4names=frozenset({"dec1_conv1"}))
+    q4 = tq.prepare_quant_params(tqp.cfg, nets["float32"], tqp.scales, tqp.qnames,
+                                 q4names=frozenset({"dec1_conv1"}))
+    assert q4.q4names == {"dec1_conv1"} and "dec1_conv1" not in q4.qnames
     for flags in (FUSED, PAIR, {"fused_concat": True}):
         with pytest.raises(ValueError, match="phase_level0"):
             tqr.ResearchQuantInference(tqp, phase_level0="int8", device="cpu", **flags)
@@ -135,8 +137,8 @@ def test_flags_refuse_what_they_do_not_compose_with(nets, qparams):
     assert torch.equal(
         tqr.ResearchQuantInference(tqp, phase_level0="bf16", device="cpu").apply(x),
         tq.QuantInference(tqp, phase_level0="bf16", device="cpu").apply(x))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tqr.ResearchQuantInference(q4, device="cpu")
+    assert torch.equal(tqr.ResearchQuantInference(q4, device="cpu").apply(x),
+                       tq.QuantInference(q4, device="cpu").apply(x))
     # dec0_conv1 is int8 here, so enc0_chain captures an int8 skip, which
     # pool_mode='none' would pool as integers
     for opts, match in (({"pool_mode": "none"}, "quantized skip"),

@@ -83,12 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TESTING: serve through the post-training-quantized "
                         "forward: 'int8' runs the convs of 128 or more input "
                         "channels in int8; 'int8-phase' also runs level 0 "
-                        "phase-packed, its packed convs in int8. On an NVIDIA "
-                        "H100 80GB HBM3 at a 700 W limit both are slower than "
-                        "bf16: 397.8 and 383.2 against 827.0 tiles/s for the "
-                        "bf16 'pallas' model (PERF.md). 'int4' and "
-                        "'int4-phase' are not ported yet and raise "
-                        "NotImplementedError")
+                        "phase-packed, its packed convs in int8; 'int4' and "
+                        "'int4-phase' run those convs outside level 0 in int4 "
+                        "(w4a4, on the int8 library route: the card has no "
+                        "int4 MMA). On an NVIDIA H100 80GB HBM3 at a 700 W "
+                        "limit the int8 tiers are slower than bf16: 397.8 and "
+                        "383.2 against 827.0 tiles/s for the bf16 'pallas' "
+                        "model, and the int4 tiers slower still: 191.7 and "
+                        "188.6 tiles/s (PERF.md)")
     p.add_argument("--phase-level0", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="run level 0 of the trainable model phase-packed "

@@ -1,4 +1,4 @@
-"""Int8 quantized U-Net serving (counterpart of the int8 part of
+"""Int8 and int4 quantized U-Net serving (counterpart of
 ``tpu_unet/infer/quant.py``).
 
 * Post-training quantization, symmetric: per-tensor activation scales
@@ -24,6 +24,16 @@
   `ops.conv_kxk.conv_rows3_col`, under 'xla' through the library route. The
   split int8 ``dec0_conv1`` (two int32 sums with a scale each) takes the
   library accumulate under both, as the JAX package's does.
+* The int4 tier (w4a4, `q4names`: by default every int8 conv outside level
+  0) runs its convs on int4-range values stored as int8
+  (`ops.conv_tiles.conv3x3_int4_xla`: the int8 library route on the card,
+  under both impls, as the JAX package runs XLA's int4 conv under both).
+  Post-ReLU activations are shifted-u4 (u - 8, u in [0, 15]) at the
+  calibrated scale x 127/15, with the constant 8 * sum(w) added to the
+  int32 sums; an int4 decoder conv1 runs as two sums over its two sources
+  (the skip in shifted-u4, the upconv output in signed s4 at x 127/7),
+  never building the concat. Each encoding boundary requantizes in place
+  (int8 <-> u4s: round(q * s_from / s_to)).
 
 `QuantParams` holds the JAX package's layouts (HWIO kernels, the spatially
 flipped transposed-conv kernels of ``up{d}``) as CPU tensors, so a
@@ -34,13 +44,10 @@ The float convs run in f32 on bf16-valued tensors and add the f32 bias
 before one bf16 rounding, as the JAX package's ``preferred_element_type``
 convs do. On the card they may run in TF32: a bf16 value is exact in TF32,
 so the products are those of f32.
-
-Not ported yet: the int4 tier (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -55,11 +62,18 @@ from tpu_unet_torch.convert import kernel_to_convtranspose_weight, params_from_s
 from tpu_unet_torch.models.unet import _max_pool2, center_crop_or_pad
 from tpu_unet_torch.ops import phase as ph
 from tpu_unet_torch.ops.conv_kxk import conv_rows3_col
-from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int8_xla,
-                                           conv_int8_acc, quantize_activations,
-                                           quantize_weights)
+from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int4_acc,
+                                           conv3x3_int4_xla, conv3x3_int8_xla,
+                                           conv_int8_acc, int4_epilogue,
+                                           quantize_activations, quantize_activations_s4,
+                                           quantize_activations_u4s, quantize_weights,
+                                           quantize_weights_int4, requantize_i8_to_u4s,
+                                           requantize_u4s_to_i8, tf32_for_bf16_values)
 
-_INT4 = "the int4 tier is not ported yet (ROADMAP queue 1, item 10)"
+# 4-bit activation scales come from the int8 calibration: the clip range is
+# the same, only the level count changes (shifted-u4 has 16 levels, s4 15).
+_U4 = 127.0 / 15.0
+_S4 = 127.0 / 7.0
 
 
 def _conv_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -96,9 +110,9 @@ def default_quant_names(cfg: ModelConfig, min_channels: int = 128) -> FrozenSet[
 
 
 def default_int4_names(cfg: ModelConfig, min_channels: int = 128) -> FrozenSet[str]:
-    """The int4 tier's conv set: every int8 conv outside level 0. The tier
-    itself is not ported yet (ROADMAP item 10); the set is what it will
-    serve."""
+    """The int4 tier's conv set: every int8 conv outside level 0, which
+    carries the finest spatial detail (and has its own phase-packed
+    formulation)."""
     level0 = {"enc0_conv1", "enc0_conv2", "dec0_conv1", "dec0_conv2"}
     return frozenset(default_quant_names(cfg, min_channels) - level0)
 
@@ -132,8 +146,8 @@ class QuantParams:
     """Serving parameters, CPU tensors in the JAX package's layouts: int8
     HWIO kernels with per-output-channel scales and f32 biases for the
     quantized convs, bf16 kernels (f32 for the level-0 convs) and f32 biases
-    for the float rest. `q4names`/`q4conv` are the int4 tier's, empty until
-    it is ported."""
+    for the float rest; `q4names`/`q4conv`, the int4 tier's (int4-range
+    HWIO kernels stored as int8), are disjoint from `qnames`."""
 
     cfg: ModelConfig
     qnames: FrozenSet[str]
@@ -168,18 +182,21 @@ def prepare_quant_params(cfg: ModelConfig, params, scales: Dict[str, float],
                          qnames: Optional[FrozenSet[str]] = None,
                          q4names: Optional[FrozenSet[str]] = None) -> QuantParams:
     """Quantize the weights of `params` (a port UNet, its state_dict, or a
-    JAX-layout parameter tree) for serving with the calibrated `scales`."""
-    if q4names:
-        raise NotImplementedError(_INT4)
+    JAX-layout parameter tree) for serving with the calibrated `scales`.
+    A conv in both `qnames` and `q4names` runs int4."""
     if qnames is None:
         qnames = default_quant_names(cfg)
-    qnames = frozenset(qnames)
+    q4names = frozenset(q4names or ())
+    qnames = frozenset(qnames) - q4names
     p = _jax_layout(params)
-    qconv, fconv = {}, {}
+    qconv, fconv, q4conv = {}, {}, {}
     for name in _conv_names(cfg):
         kernel = _cpu_f32(p[name]["kernel"])
         bias = _cpu_f32(p[name]["bias"])
-        if name in qnames:
+        if name in q4names:
+            w_q, s_w = quantize_weights_int4(kernel)
+            q4conv[name] = (w_q, s_w, bias)
+        elif name in qnames:
             w_q, s_w = quantize_weights(kernel)
             qconv[name] = (w_q, s_w, bias)
         else:
@@ -189,19 +206,7 @@ def prepare_quant_params(cfg: ModelConfig, params, scales: Dict[str, float],
         fconv[name] = (_cpu_f32(p[name]["kernel"]).to(torch.bfloat16),
                        _cpu_f32(p[name]["bias"]))
     return QuantParams(cfg=cfg, qnames=qnames, scales=dict(scales), qconv=qconv,
-                       fconv=fconv)
-
-
-@contextlib.contextmanager
-def _tf32_for_bf16_values():
-    """Let cuDNN and cuBLAS run f32 convs and matmuls in TF32 inside: only
-    for operands that hold bf16 values, which TF32 represents exactly."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+                       fconv=fconv, q4names=q4names, q4conv=q4conv)
 
 
 class QuantInference:
@@ -231,8 +236,6 @@ class QuantInference:
                              "skip is captured post-pool, outside the packed domain)")
         if phase_level0 and qp.cfg.in_channels != 1:
             raise ValueError("phase_level0 expects the 1-channel input")
-        if qp.q4names:
-            raise NotImplementedError(_INT4)
         if upconv_impl not in ("xla", "matmul"):
             raise ValueError(f"upconv_impl must be 'xla' or 'matmul', got {upconv_impl!r}")
         for name, li in (layer_impl or {}).items():
@@ -250,6 +253,7 @@ class QuantInference:
         dev = self.device
         # the weights in PyTorch's layouts on the device, once
         self._wq = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.qconv.items()}
+        self._wq4 = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.q4conv.items()}
         self._fconv, self._up = {}, {}
         for name, (k, b) in qp.fconv.items():
             k = k.to(torch.bfloat16).float()
@@ -276,10 +280,13 @@ class QuantInference:
         return self._scalars[key]
 
     def _deq(self, v: torch.Tensor, s) -> torch.Tensor:
-        """Dequantize: None = float already; a float = int8 at that scale,
-        multiplied in bf16 by bf16(s)."""
+        """Dequantize by encoding: None = float already; a float = int8 at
+        that scale, multiplied in bf16 by bf16(s); ('u4s', s4) = shifted-u4,
+        (q + 8) * s4 in f32, rounded to bf16."""
         if s is None:
             return v
+        if isinstance(s, tuple):
+            return ((v.float() + 8.0) * self._scalar(s[1])).to(torch.bfloat16)
         return v.to(torch.bfloat16) * self._scalar(s, torch.bfloat16)
 
     def _quantize(self, v: torch.Tensor, s: float) -> torch.Tensor:
@@ -288,11 +295,16 @@ class QuantInference:
     def _epilogue_vectors(self, name: str, s_in: float, paired: bool = False):
         """alpha = s_in * s_w / s_out and beta = bias / s_out in f32,
         computed on the CPU as JAX computes them, then kept on the device;
-        each twice over (`paired`) for the block-diagonal kernel."""
+        each twice over (`paired`) for the block-diagonal kernel. An int4
+        conv's s_out is its calibrated scale x 127/15 (shifted-u4 out)."""
         key = (name, s_in, paired)
         if key not in self._epilogues:
-            _, s_w, bias = self.qp.qconv[name]
-            s_out = self.qp.scales[name]
+            if name in self.qp.q4names:
+                _, s_w, bias = self.qp.q4conv[name]
+                s_out = self.qp.scales[name] * _U4
+            else:
+                _, s_w, bias = self.qp.qconv[name]
+                s_out = self.qp.scales[name]
             alpha = (s_in * s_w / s_out).float()
             beta = (bias / s_out).float()
             if paired:
@@ -323,19 +335,39 @@ class QuantInference:
 
     def _conv_f(self, name: str, v: torch.Tensor, paired: bool = False) -> torch.Tensor:
         k, b = self._paired_weights(name) if paired else self._fconv[name]
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
         return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
     def _conv(self, name: str, v: torch.Tensor, s_in, paired: bool = False):
         """One 3x3 conv + ReLU. (v, s_in) -> (v, s_out); s None = float
-        (bf16), a float = int8 at that scale. `paired`: v holds two batch
-        images side by side in the channels, and the conv runs with the
-        block-diagonal kernel."""
+        (bf16), a float = int8 at that scale, ('u4s', s4) = shifted-u4.
+        `paired`: v holds two batch images side by side in the channels, and
+        the conv runs with the block-diagonal kernel."""
         qp = self.qp
+        if name in qp.q4names:
+            # inputs are post-ReLU here (the decoder conv1s take
+            # _conv_i4_split), so the shifted-u4 encoding applies
+            if isinstance(s_in, tuple):            # chained u4s
+                s_in4 = s_in[1]
+            elif s_in is None:
+                s_in4 = qp.scales[self._input_scale_key(name)] * _U4
+                v = quantize_activations_u4s(v, self._scalar(s_in4))
+            else:                                  # int8 at scale s_in
+                s_in4 = s_in * _U4
+                v = requantize_i8_to_u4s(v, s_in, s_in4)
+            alpha, beta = self._epilogue_vectors(name, s_in4)
+            y = conv3x3_int4_xla(v, self._wq4[name], alpha, beta, out_kind="u4s",
+                                 shifted=True)
+            return y, ("u4s", qp.scales[name] * _U4)
         if name not in qp.qnames:
             return self._conv_f(name, self._deq(v, s_in), paired=paired), None
-        if s_in is None:
+        if isinstance(s_in, tuple):
+            # u4s feeding an int8 conv: requantize to the tensor's calibrated
+            # int8 scale (the exact requantize of the dequantized value)
+            s4, s_in = s_in[1], qp.scales[self._input_scale_key(name)]
+            v = requantize_u4s_to_i8(v, s4, s_in)
+        elif s_in is None:
             s_in = qp.scales[self._input_scale_key(name)]
             v = self._quantize(v, s_in)
         alpha, beta = self._epilogue_vectors(name, s_in, paired)
@@ -348,12 +380,43 @@ class QuantInference:
                           variant="auto" if self.block_rows is None else "nconcat")
         return y, qp.scales[name]
 
+    def _conv_i4_split(self, d: int, u: torch.Tensor, skip):
+        """The int4 decoder conv1 without building the concat: the kernel
+        splits by source along Cin ([skip | up], the concat's order), each
+        source at its own 4-bit scale (the skip post-ReLU in shifted-u4, the
+        signed upconv output in s4), and the two int32 sums meet in f32."""
+        qp = self.qp
+        name = f"dec{d}_conv1"
+        w_q = self._wq4[name]
+        c_skip = qp.cfg.widths[d]
+        sk, sk_s = skip
+        if isinstance(sk_s, tuple):
+            s_sk4 = sk_s[1]
+        elif sk_s is None:
+            s_sk4 = qp.scales[f"enc{d}_conv2"] * _U4
+            sk = quantize_activations_u4s(sk, self._scalar(s_sk4))
+        else:
+            s_sk4 = sk_s * _U4
+            sk = requantize_i8_to_u4s(sk, sk_s, s_sk4)
+        # shifted-u4 stores a zero activation as -8: the parity variant's pad
+        # fills -8, or the +8 * sum(w) correction would add a phantom
+        # activation across the padded region
+        sk = center_crop_or_pad(sk, u.shape[1:3], fill=-8)
+        s_up4 = qp.scales[f"up{d}"] * _S4
+        u_q = quantize_activations_s4(u, self._scalar(s_up4))
+        acc_sk = conv3x3_int4_acc(sk, w_q[:, :, :c_skip], shifted=True)
+        acc_up = conv3x3_int4_acc(u_q, w_q[:, :, c_skip:], shifted=False)
+        # two products and a sum, each rounded to f32, as JAX rounds them
+        t = acc_sk.float() * self._scalar(s_sk4) + acc_up.float() * self._scalar(s_up4)
+        alpha, beta = self._epilogue_vectors(name, 1.0)   # s_w / s_out4: 1.0 * s_w is exact
+        return int4_epilogue(t, alpha, beta, out_kind="u4s"), ("u4s", qp.scales[name] * _U4)
+
     def _upconv(self, name: str, v: torch.Tensor) -> torch.Tensor:
         """2x2 stride-2 transposed conv, f32 sums of bf16 values, + f32 bias,
         one bf16 rounding."""
         wt, b = self._up[name]
         x = v.to(torch.bfloat16).float()
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             if self.upconv_impl == "matmul":
                 bsz, h, w, cin = x.shape
                 co = wt.shape[1]
@@ -373,6 +436,10 @@ class QuantInference:
         them), up0 as one matmul, and dec0_conv1 split by source."""
         qp, dev = self.qp, self.device
         w0 = qp.cfg.widths[0]
+        bad_q4 = sorted(qp.q4names & set(_LEVEL0_CONVS))
+        if bad_q4:
+            raise ValueError("phase_level0 serves level 0 in bf16/int8; int4 level-0 convs "
+                             f"are unsupported (q4names contains: {bad_q4})")
         if (mode == "int8"
                 or not {"enc0_conv2", "dec0_conv1", "dec0_conv2"}.isdisjoint(qp.qnames)):
             missing = [k for k in ("enc0_conv1", "enc0_conv2", "up0", "dec0_conv1",
@@ -448,7 +515,7 @@ class QuantInference:
                        ) -> torch.Tensor:
         """relu(conv2x2(v, k) + b) of bf16 values summed in f32 (k packed
         OIHW), one bf16 rounding: a packed float conv."""
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
         return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
@@ -467,9 +534,9 @@ class QuantInference:
         packed dec0 convs and the head; depth-to-space only on the logits."""
         qp, P = self.qp, self._phase
         km, bm = P["up0"]
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             u = (self._deq(v, s).to(torch.bfloat16).float() @ km + bm).to(torch.bfloat16)
-        if cut("up0"):
+        if cut("up0", u):
             return u
         sk_p, sk_s = skip
         # the full-resolution margin is the packed sizes' difference
@@ -485,10 +552,10 @@ class QuantInference:
         else:
             _, ksk, kup, bb = spec
             skb = self._deq(skc, sk_s).to(torch.bfloat16).float().permute(0, 3, 1, 2)
-            with _tf32_for_bf16_values():
+            with tf32_for_bf16_values():
                 acc = F.conv2d(skb, ksk) + F.conv2d(u.float().permute(0, 3, 1, 2), kup)
             v, s = torch.relu(acc.permute(0, 2, 3, 1) + bb).to(torch.bfloat16), None
-        if cut("dec0_conv1"):
+        if cut("dec0_conv1", v):
             return v
         spec = P["dec0_conv2"]
         if spec[0] == "int8":
@@ -497,10 +564,10 @@ class QuantInference:
             v, s = self._conv_packed_i8("dec0_conv2", v, spec), spec[4]
         else:
             v, s = self._conv_packed_f(self._deq(v, s), *spec[1:]), None
-        if cut("dec0_conv2"):
+        if cut("dec0_conv2", v):
             return v
         kh, bh = P["head"]
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = ph.phase_head_matmul(self._deq(v, s).to(torch.bfloat16), kh, bh)
         return ph.depth_to_space(y)
 
@@ -530,15 +597,20 @@ class QuantInference:
         level 0's stages packed under `phase_level0`."""
         cfg, qp = self.qp.cfg, self.qp
 
-        def cut(name):
+        def cut(name, t):
             return stop_after is not None and name == stop_after
 
         def capture_skip(d, v, s):
-            """A float skip feeding a quantized decoder conv is stored int8
-            at the concat scale at once (quantize and crop commute)."""
+            """A float skip feeding a quantized decoder conv is stored
+            quantized at once (quantize and crop commute): int8 at the
+            concat scale, or shifted-u4 at its own scale for an int4 conv."""
             key = f"dec{d}_conv1:cat"
             if s is None and f"dec{d}_conv1" in qp.qnames and key in qp.scales:
                 return self._quantize(v, qp.scales[key]), qp.scales[key]
+            if (s is None and f"dec{d}_conv1" in qp.q4names
+                    and f"enc{d}_conv2" in qp.scales):
+                s4 = qp.scales[f"enc{d}_conv2"] * _U4
+                return quantize_activations_u4s(v, self._scalar(s4)), ("u4s", s4)
             return v, s
 
         v, s = x.to(self.device, torch.float32).to(torch.bfloat16), None
@@ -547,7 +619,7 @@ class QuantInference:
             if d == 0 and self._phase is not None:
                 P = self._phase
                 y = self._conv_packed_f(ph.space_to_depth(v), *P["enc0_conv1"])
-                if cut("enc0_conv1"):          # packed [.., 4 * w0]
+                if cut("enc0_conv1", y):       # packed [.., 4 * w0]
                     return y
                 spec = P["enc0_conv2"]
                 if spec[0] == "int8":
@@ -555,48 +627,52 @@ class QuantInference:
                         y, qp.scales["enc0_conv1"]), spec), spec[4]
                 else:
                     v, s = self._conv_packed_f(y, *spec[1:]), None
-                if cut("enc0_conv2"):          # packed
+                if cut("enc0_conv2", v):       # packed
                     return v
                 skips.append((v, s))           # packed, at its own scale
                 v = ph.phase_pool(v)           # exits the packed domain
-                if cut("pool0"):
+                if cut("pool0", v):
                     return v
                 continue
             v, s = self._conv(f"enc{d}_conv1", v, s)
-            if cut(f"enc{d}_conv1"):
+            if cut(f"enc{d}_conv1", v):
                 return v
             v, s = self._conv(f"enc{d}_conv2", v, s)
-            if cut(f"enc{d}_conv2"):
+            if cut(f"enc{d}_conv2", v):
                 return v
             if cfg.skip_variant == "paper":
                 skips.append(capture_skip(d, v, s))
             v = _max_pool2(v)              # order-preserving: valid on int8
             if cfg.skip_variant == "parity":
                 skips.append(capture_skip(d, v, s))
-            if cut(f"pool{d}"):
+            if cut(f"pool{d}", v):
                 return v
         v, s = self._conv("bottleneck_conv1", v, s)
-        if cut("bottleneck_conv1"):
+        if cut("bottleneck_conv1", v):
             return v
         v, s = self._conv("bottleneck_conv2", v, s)
-        if cut("bottleneck_conv2"):
+        if cut("bottleneck_conv2", v):
             return v
 
         for d in reversed(range(cfg.depth)):
             if d == 0 and self._phase is not None:
                 return self._phase_dec0(v, s, skips[0], cut)
             u = self._upconv(f"up{d}", self._deq(v, s))
-            if cut(f"up{d}"):
+            if cut(f"up{d}", u):
                 return u
             sk, sk_s = skips[d]
             name = f"dec{d}_conv1"
-            if name in qp.qnames:
+            if name in qp.q4names:
+                v, s = self._conv_i4_split(d, u, skips[d])
+            elif name in qp.qnames:
                 # the concat in int8: the int8 skip is requantized directly
                 # (round(q * sk_s / s_cat) is the requantize of its
                 # dequantized value) and the bf16 upconv output quantized
                 s_cat = qp.scales[name + ":cat"]
                 if sk_s is None:
                     sk_q = self._quantize(sk, s_cat)
+                elif isinstance(sk_s, tuple):      # a u4s skip from an int4 conv
+                    sk_q = requantize_u4s_to_i8(sk, sk_s[1], s_cat)
                 elif sk_s == s_cat:
                     sk_q = sk
                 else:
@@ -609,14 +685,14 @@ class QuantInference:
             else:
                 sk = center_crop_or_pad(self._deq(sk, sk_s), u.shape[1:3])
                 v, s = self._conv(name, torch.cat([sk, u], dim=-1), None)
-            if cut(name):
+            if cut(name, v):
                 return v
             v, s = self._conv(f"dec{d}_conv2", v, s)
-            if cut(f"dec{d}_conv2"):
+            if cut(f"dec{d}_conv2", v):
                 return v
 
         k, b = self._head
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = self._deq(v, s).float() @ k
         return y + b
 
@@ -657,6 +733,10 @@ def save_quant_params(path: str, qp: QuantParams) -> None:
         arrays[f"q:{name}:w"] = w_q.cpu().numpy()
         arrays[f"q:{name}:s"] = s_w.cpu().numpy()
         arrays[f"q:{name}:b"] = bias.cpu().numpy()
+    for name, (w_q, s_w, bias) in qp.q4conv.items():
+        arrays[f"q4:{name}:w"] = w_q.cpu().numpy()
+        arrays[f"q4:{name}:s"] = s_w.cpu().numpy()
+        arrays[f"q4:{name}:b"] = bias.cpu().numpy()
     for name, (k, b) in qp.fconv.items():
         arrays[f"f:{name}:k"] = k.cpu().float().numpy()
         arrays[f"f:{name}:b"] = b.cpu().numpy()
@@ -678,23 +758,22 @@ def load_quant_params(path: str) -> QuantParams:
         path += ".npz"
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
-        if meta.get("q4names"):
-            raise NotImplementedError(f"{path} holds int4 convs: {_INT4}")
         cfg = ModelConfig(**meta["cfg"])
-        qconv, fconv = {}, {}
+        qconv, fconv, q4conv = {}, {}, {}
         for key in z.files:
             kind, _, rest = key.partition(":")
-            if kind == "q" and rest.endswith(":w"):
+            if kind in ("q", "q4") and rest.endswith(":w"):
                 name = rest[:-2]
-                qconv[name] = tuple(torch.from_numpy(np.array(z[f"q:{name}:{x}"]))
-                                    for x in "wsb")
+                (qconv if kind == "q" else q4conv)[name] = tuple(
+                    torch.from_numpy(np.array(z[f"{kind}:{name}:{x}"])) for x in "wsb")
             elif kind == "f" and rest.endswith(":k"):
                 name = rest[:-2]
                 k = torch.from_numpy(np.array(z[f"f:{name}:k"], np.float32))
                 fconv[name] = (k if name in _LEVEL0_CONVS else k.to(torch.bfloat16),
                                torch.from_numpy(np.array(z[f"f:{name}:b"])))
     return QuantParams(cfg=cfg, qnames=frozenset(meta["qnames"]),
-                       scales=dict(meta["scales"]), qconv=qconv, fconv=fconv)
+                       scales=dict(meta["scales"]), qconv=qconv, fconv=fconv,
+                       q4names=frozenset(meta.get("q4names", ())), q4conv=q4conv)
 
 
 def build_quant_inference(model, sample_batch, min_channels: int = 128,
@@ -709,12 +788,14 @@ def build_quant_inference(model, sample_batch, min_channels: int = 128,
     `sample_batch`, quantize it, and build the engine on the model's
     device. A model under ``cfg.phase_level0`` is calibrated through its
     packed forward, as the JAX package's is: its level-0 outputs are the
-    same values in another order."""
-    if int4 or int4_names:
-        raise NotImplementedError(_INT4)
+    same values in another order. `int4=True` serves `default_int4_names`
+    in int4; `int4_names` names the int4 set instead."""
     cfg = model.cfg
     scales = add_concat_scales(cfg, calibrate(model, sample_batch))
-    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, min_channels))
+    if int4_names is None and int4:
+        int4_names = default_int4_names(cfg, min_channels)
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, min_channels),
+                              q4names=int4_names)
     return QuantInference(qp, impl=impl, block_rows=block_rows, interpret=interpret,
                           layer_impl=layer_impl, phase_level0=phase_level0,
                           device=_model_device(model))

@@ -28,8 +28,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from tpu_unet_torch.infer.quant import QuantInference, QuantParams, _tf32_for_bf16_values
+from tpu_unet_torch.infer.quant import QuantInference, QuantParams
 from tpu_unet_torch.models.unet import _max_pool2, center_crop_or_pad
+from tpu_unet_torch.ops.conv_tiles import tf32_for_bf16_values
 from tpu_unet_torch.ops.fused_level0 import concat_quantize, enc0_chain
 from tpu_unet_torch.ops.interleave import (interleave_pairs, pair_batch_channels,
                                            unpair_batch_channels)
@@ -49,8 +50,8 @@ class ResearchQuantInference(QuantInference):
     def __init__(self, qp: QuantParams, *, pair_level0: bool = False,
                  fused_enc0: bool = False, fused_concat: bool = False,
                  fused_enc0_opts: Optional[Dict[str, object]] = None, **kwargs):
-        # The conflicts are checked first, so that they raise ValueError as
-        # the JAX package's do, before the parent refuses what is not ported.
+        # The conflicts are checked first, as ValueErrors, as the JAX
+        # package's are.
         research = pair_level0 or fused_enc0 or fused_concat
         if kwargs.get("phase_level0") and research:
             raise ValueError("phase_level0 is a level-0 formulation of its own; combine it "
@@ -189,7 +190,7 @@ class ResearchQuantInference(QuantInference):
                 if cut("dec0_conv2"):
                     return v
                 k, b = self._paired_weights("head")
-                with _tf32_for_bf16_values():
+                with tf32_for_bf16_values():
                     y = self._deq(v, s).float() @ k
                 return unpair(y + b)
             if name in qp.qnames:
@@ -218,6 +219,6 @@ class ResearchQuantInference(QuantInference):
                 return v
 
         k, b = self._head
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = self._deq(v, s).float() @ k
         return y + b

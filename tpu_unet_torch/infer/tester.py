@@ -4,8 +4,8 @@ metric aggregation (counterpart of ``tpu_unet/infer/tester.py``).
 The model holds its weights on its device, so `evaluate` takes no params.
 Engines are built per call: in eager PyTorch a `TileInference` holds only
 its tile plan, so there is nothing compiled to keep between calls. Nor is
-a calibrated int8 engine cached by the model's identity: `quant_path` keeps
-the calibration on disk instead.
+a calibrated quantized engine cached by the model's identity: `quant_path`
+keeps the calibration on disk instead.
 """
 
 from __future__ import annotations
@@ -43,16 +43,17 @@ def export_predictions(output_dir: str, idx: int, image: np.ndarray,
 
 
 def _get_quant_inference(model, prepared, quant_path: Optional[str],
-                         phase_level0: Optional[str] = None):
-    """The int8 engine for `model` (level 0 phase-packed under
-    `phase_level0`). An existing `quant_path` (.npz, either package's) is
-    served from disk with no calibration; otherwise the model is calibrated
-    on the eval images, and the result saved to `quant_path` when one is
-    given.
+                         phase_level0: Optional[str] = None, int4: bool = False):
+    """The quantized engine for `model` (level 0 phase-packed under
+    `phase_level0`; the int4 tier under `int4`). An existing `quant_path`
+    (.npz, either package's) is served from disk with no calibration, and
+    must hold the tier asked for; otherwise the model is calibrated on the
+    eval images, and the result saved to `quant_path` when one is given.
 
-    K3 serves when ``model.cfg.conv_impl == 'pallas'``, the int8 library
-    route otherwise. (The JAX package always builds ``impl='xla'``, which
-    it measured faster on its TPU; the two routes give equal results.)"""
+    K3 serves the int8 convs when ``model.cfg.conv_impl == 'pallas'``, the
+    int8 library route otherwise. (The JAX package always builds
+    ``impl='xla'``, which it measured faster on its TPU; the two routes give
+    equal results.) The int4 convs take the library route under both."""
     from tpu_unet_torch.infer.quant import (QuantInference, build_quant_inference,
                                             calibration_batch, load_quant_params,
                                             save_quant_params)
@@ -61,10 +62,18 @@ def _get_quant_inference(model, prepared, quant_path: Optional[str],
     device = next(model.parameters()).device
     if quant_path is not None and (os.path.exists(quant_path)
                                    or os.path.exists(quant_path + ".npz")):
-        return QuantInference(load_quant_params(quant_path), impl=impl,
-                              phase_level0=phase_level0, device=device)
+        qp = load_quant_params(quant_path)
+        # a file defines its own precision: serving it as the other tier
+        # would mislabel the results
+        if bool(qp.q4names) != int4:
+            have = "int4" if qp.q4names else "int8"
+            want = "int4" if int4 else "int8"
+            raise ValueError(f"quant_path {quant_path!r} holds an {have}-tier QuantParams "
+                             f"but quant requested the {want} tier; use a separate path "
+                             f"per tier")
+        return QuantInference(qp, impl=impl, phase_level0=phase_level0, device=device)
     qi = build_quant_inference(model, calibration_batch([p[0] for p in prepared]),
-                               impl=impl, phase_level0=phase_level0)
+                               impl=impl, phase_level0=phase_level0, int4=int4)
     if quant_path is not None:
         save_quant_params(quant_path, qi.qp)
     return qi
@@ -86,13 +95,12 @@ def evaluate(
 
     `quant='int8'` serves through the post-training-quantized forward
     (infer/quant.py); `quant='int8-phase'` also runs level 0 phase-packed,
-    its packed convs in int8 (``phase_level0='int8'``); `quant_path` serves
-    from, or writes, the calibrated parameters (.npz, the same file for
-    both)."""
-    if quant in ("int4", "int4-phase"):
-        raise NotImplementedError(f"quant={quant!r} is not ported yet (ROADMAP "
-                                  f"queue 1, item 10)")
-    if quant not in (None, "int8", "int8-phase"):
+    its packed convs in int8 (``phase_level0='int8'``); `quant='int4'` and
+    `'int4-phase'` further run every int8 conv outside level 0 in int4
+    (`default_int4_names`). `quant_path` serves from, or writes, the
+    calibrated parameters (.npz, one file per tier: the int8 tiers share
+    one, the int4 tiers another)."""
+    if quant not in (None, "int8", "int8-phase", "int4", "int4-phase"):
         raise ValueError(f"quant must be None, 'int8', 'int8-phase', 'int4' or "
                          f"'int4-phase', got {quant!r}")
     start = time.time()
@@ -100,8 +108,9 @@ def evaluate(
                 for i in range(len(data))]
     apply_fn = None
     if quant is not None:
-        phase = "int8" if quant == "int8-phase" else None
-        apply_fn = _get_quant_inference(model, prepared, quant_path, phase).apply
+        phase = "int8" if quant.endswith("-phase") else None
+        apply_fn = _get_quant_inference(model, prepared, quant_path, phase,
+                                        int4=quant.startswith("int4")).apply
     groups: Dict[tuple, list] = {}
     for idx, (img, _tgt) in enumerate(prepared):
         groups.setdefault(img.shape, []).append(idx)

@@ -15,6 +15,14 @@ train: the kernel's gradient is its autograd.Function, the split form's is
 autograd's (the same cotangents as the JAX package's ``_scc_bwd``), and
 ``remat`` checkpoints each encoder level, as the JAX package does.
 
+``conv_bwd`` ('mm' or 'auto'; 'xla' is plain autograd) routes the weight
+gradient of each plain 3x3 conv under ``conv_impl='xla'`` through the
+im2col matmul of `ops.conv_bwd.conv3x3_bias` ('auto': the layers
+`auto_wgrad_impl` picks at their input size), as the JAX package's
+``conv3`` does; the forward is unchanged, bit for bit. The split-concat
+decoder convs, the phase-packed level 0 and ``'pallas'`` keep their own
+backward.
+
 ``phase_level0`` runs level 0 (enc0's convs, pool0, up0, dec0's convs and
 the head) on the 2x2 phase decomposition of the input (ops/phase.py): the
 3x3 convs as 2x2 convs at 4x the channels with the kernels packed inside the
@@ -44,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.core.geometry import output_size_for_input
 from tpu_unet_torch.ops import phase as ph
+from tpu_unet_torch.ops.conv_bwd import auto_wgrad_impl, conv3x3_bias
 from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -187,11 +196,20 @@ class UNet(nn.Module):
         p = getattr(self, name)
         return p["weight"].to(self.compute_dtype), p["bias"].to(self.compute_dtype)
 
+    def _wgrad_impl(self, x: torch.Tensor) -> str:
+        """The weight gradient's route of a plain 3x3 conv of `x` under
+        ``conv_impl='xla'``: 'mm' or 'xla', by ``cfg.conv_bwd``."""
+        if self.cfg.conv_bwd == "auto":
+            return auto_wgrad_impl(x.shape[1], x.shape[-1])
+        return self.cfg.conv_bwd
+
     def _conv3_relu(self, name: str, x: torch.Tensor,
                     capture: Optional[dict] = None) -> torch.Tensor:
         w, b = self._wb(name)
         if self.cfg.conv_impl == "pallas":
             y = conv3x3_bias_relu(x.contiguous(), w.permute(2, 3, 1, 0).contiguous(), b)
+        elif self._wgrad_impl(x) == "mm":
+            y = F.relu(conv3x3_bias(x, w.permute(2, 3, 1, 0), b, wgrad="mm", dgrad="xla"))
         else:
             y = _nhwc(F.relu(F.conv2d(_nchw(x), w, b)))
         if capture is not None:
@@ -348,9 +366,6 @@ def _check_config(cfg: ModelConfig) -> None:
                              f"{getattr(cfg, field)!r}")
     if cfg.conv_bwd not in ("auto", "mm", "xla"):
         raise ValueError(f"conv_bwd must be 'auto', 'mm' or 'xla', got {cfg.conv_bwd!r}")
-    if cfg.conv_bwd != "xla":
-        raise NotImplementedError(
-            "conv_bwd 'mm'/'auto' is not ported yet (ROADMAP queue 1, item 13)")
     if cfg.phase_level0 and cfg.conv_impl != "xla":
         raise ValueError("phase_level0 requires conv_impl='xla' (the phase path "
                          "replaces the level-0 convs)")

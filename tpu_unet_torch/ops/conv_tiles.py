@@ -1,8 +1,8 @@
 """Fused 3x3 valid conv + scale + bias + ReLU (+ requantize) for int8 and
 bf16 serving: the Hopper kernel K3, its plain PyTorch version, the int8
-library route, and the quantizers.
+library route, the quantizers, and the int4 tier's helpers.
 
-Counterpart of the int8 part of ``tpu_unet/ops/conv_tiles.py``. Layouts
+Counterpart of ``tpu_unet/ops/conv_tiles.py``. Layouts
 are the JAX package's: x NHWC ``[B, H, W, Cin]``, w HWIO ``[3, 3, Cin,
 Cout]``, alpha and beta f32 ``[Cout]`` -> ``[B, H-2, W-2, Cout]``.
 
@@ -32,10 +32,15 @@ Two routes compute the int8 conv:
   the counterpart of XLA's int8 conv, followed by the same epilogue in
   PyTorch. It takes 3x3 and 2x2 kernels, as the JAX function does; K3
   takes 3x3 only.
+
+The int4 convs (`conv3x3_int4_acc`, `conv3x3_int4_xla`) are XLA-level in the
+JAX package, with no TPU kernel under them: on the card they take the int8
+library route on int4-range values, on the CPU an exact f64 conv.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from tpu_unet_torch.ops import _build
 
 _OUT_KINDS = ("auto", "int8", "bf16")
+_EPILOGUE_KINDS = ("int8", "u4s", "bf16")
 _VARIANTS = ("nconcat", "taps", "rows3", "im2col")
 _INT32_MAX = 2 ** 31 - 1
 #: Largest im2col buffer `conv3x3_int8_xla` builds at once, in bytes.
@@ -65,14 +71,109 @@ def quantize_activations(x: torch.Tensor, scale) -> torch.Tensor:
     return q.clamp_(-127.0, 127.0).to(torch.int8)
 
 
-def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[3, 3, Cin, Cout] f32 -> (int8 weights, per-output-channel scales)."""
+def _quantize_weights(w: torch.Tensor, levels: float) -> Tuple[torch.Tensor, torch.Tensor]:
     w = w.float()
-    s = w.abs().amax(dim=(0, 1, 2)) / _scalar(127.0, w.device)
+    s = w.abs().amax(dim=(0, 1, 2)) / _scalar(levels, w.device)
     s = torch.clamp_min(s, 1e-12)
-    q = torch.round(w / s).clamp_(-127.0, 127.0).to(torch.int8)
+    q = torch.round(w / s).clamp_(-levels, levels).to(torch.int8)
     return q, s
 
+
+def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[3, 3, Cin, Cout] f32 -> (int8 weights, per-output-channel scales)."""
+    return _quantize_weights(w, 127.0)
+
+
+# --- the int4 tier ------------------------------------------------------------
+# int4-range values are stored as int8, as the JAX package stores them. Two
+# activation encodings: shifted-u4 ("u4s") for post-ReLU tensors, u in
+# [0, 15] stored as u - 8 in [-8, 7], and signed s4 in [-7, 7]. Scalar
+# ratios are formed in Python (f64) and rounded to f32 once, as JAX rounds a
+# Python float operand of an f32 array.
+
+def quantize_weights_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[3, 3, Cin, Cout] f32 -> (int4-range weights in [-7, 7] stored as
+    int8, per-output-channel scales max|w| / 7)."""
+    return _quantize_weights(w, 7.0)
+
+
+def quantize_activations_u4s(x: torch.Tensor, scale) -> torch.Tensor:
+    """f32/bf16 post-ReLU [..., C] -> shifted-u4: clip(round(x / scale), 0,
+    15) - 8 as int8; `scale` is the tensor's post-ReLU max / 15."""
+    u = torch.round(x.float() / _scalar(scale, x.device)).clamp_(0.0, 15.0)
+    return (u - 8.0).to(torch.int8)
+
+
+def quantize_activations_s4(x: torch.Tensor, scale) -> torch.Tensor:
+    """f32/bf16 signed [..., C] -> int4-range int8 in [-7, 7]; `scale` is
+    abs-max / 7."""
+    q = torch.round(x.float() / _scalar(scale, x.device))
+    return q.clamp_(-7.0, 7.0).to(torch.int8)
+
+
+def requantize_i8_to_u4s(v: torch.Tensor, s8: float, s4: float) -> torch.Tensor:
+    """int8 post-ReLU values at scale `s8` -> shifted-u4 at scale `s4`:
+    round(q * s8/s4), the u4 requantize of the dequantized value."""
+    u = torch.round(v.float() * _scalar(s8 / s4, v.device)).clamp_(0.0, 15.0)
+    return (u - 8.0).to(torch.int8)
+
+
+def requantize_u4s_to_i8(v: torch.Tensor, s4: float, s8: float) -> torch.Tensor:
+    """Shifted-u4 post-ReLU values at scale `s4` -> int8 at scale `s8` (an
+    int4 producer feeding an int8 consumer)."""
+    q = torch.round((v.float() + 8.0) * _scalar(s4 / s8, v.device))
+    return q.clamp_(0.0, 127.0).to(torch.int8)
+
+
+def conv3x3_int4_acc(x_q: torch.Tensor, w_q: torch.Tensor, shifted: bool = False
+                     ) -> torch.Tensor:
+    """The int32 sums of the int4 x int4 3x3 valid conv; `x_q` and `w_q`
+    hold int4-range values stored as int8 (NHWC, HWIO).
+
+    `shifted=True` takes shifted-u4 activations (x_q = u - 8): the convs are
+    valid, so conv(u) = conv(x_q) + 8 * sum(w_q) over (kh, kw, Cin), a
+    per-output-channel int32 constant added here before any float math.
+
+    On a CPU tensor the sums are exact: `_conv_f64` rounded to int32, the
+    values of the JAX package's int32 emulation.
+    On a CUDA tensor they go through `conv_int8_acc` (im2col +
+    ``torch._int_mm``: int4 values are int8 values, and the sums stay far
+    below 2^31). Hopper has no int4 MMA, so the JAX function's `emulate`
+    backend switch has no counterpart."""
+    _check_shapes(x_q, w_q, None, None)
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype} and {w_q.dtype}")
+    if x_q.device.type == "cpu":
+        acc = _conv_f64(x_q, w_q).to(torch.int32)
+    else:
+        acc = conv_int8_acc(x_q, w_q)
+    if shifted:
+        acc = acc + 8 * w_q.sum(dim=(0, 1, 2), dtype=torch.int32)
+    return acc
+
+
+def conv3x3_int4_xla(x_q: torch.Tensor, w_q: torch.Tensor, alpha: torch.Tensor,
+                     beta: torch.Tensor, out_kind: str = "bf16", shifted: bool = False
+                     ) -> torch.Tensor:
+    """The int4 conv with its fused scale + bias + ReLU epilogue:
+    `conv3x3_int4_acc` then `int4_epilogue`."""
+    acc = conv3x3_int4_acc(x_q, w_q, shifted=shifted)
+    return int4_epilogue(acc, alpha, beta, out_kind=out_kind)
+
+
+
+@contextlib.contextmanager
+def tf32_for_bf16_values(enable: bool = True):
+    """Let cuDNN and cuBLAS run f32 convs and matmuls in TF32 inside, when
+    `enable`: only for operands that hold bf16 values, which TF32 represents
+    exactly. The caller's setting is restored on exit."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if enable:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 # --- the epilogue and the plain version -------------------------------------
 
@@ -87,11 +188,21 @@ def _resolve_out_kind(x: torch.Tensor, out_kind: str) -> str:
 def epilogue(acc: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
              out_kind: str) -> torch.Tensor:
     """relu(acc * alpha + beta) in f32 (two roundings), then round-clamp to
-    int8 in [0, 127] or round to bf16."""
+    int8 in [0, 127] ('int8'), to shifted-u4 in [0, 15] minus 8 ('u4s'), or
+    round to bf16 ('bf16')."""
+    if out_kind not in _EPILOGUE_KINDS:
+        raise ValueError(f"out_kind must be one of {_EPILOGUE_KINDS}, got {out_kind!r}")
     y = torch.relu(acc.float() * alpha.float() + beta.float())
     if out_kind == "int8":
         return torch.round(y).clamp_(0.0, 127.0).to(torch.int8)
+    if out_kind == "u4s":
+        return (torch.round(y).clamp_(0.0, 15.0) - 8.0).to(torch.int8)
     return y.to(torch.bfloat16)
+
+
+#: The int4 convs' epilogue (the JAX package's name): 'u4s' is the next int4
+#: conv's input, with the output scale baked into alpha and beta by the caller.
+int4_epilogue = epilogue
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, alpha: Optional[torch.Tensor],
@@ -116,15 +227,20 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, alpha: Optional[torch.Tensor
                          f"{x.shape[1]}x{x.shape[2]}")
 
 
+def _conv_f64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The valid conv of NHWC x with HWIO w in f64, NHWC: exact for integer
+    values, since |acc| <= 9 * Cin * 127^2 < 2^53 at any Cin the model has."""
+    acc = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1))
+    return acc.permute(0, 2, 3, 1)
+
+
 def conv3x3_fused_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
                         beta: torch.Tensor, out_kind: str = "auto") -> torch.Tensor:
-    """What K3 computes, in plain PyTorch: the conv in f64 (exact for int8
-    values, since |acc| <= 9 * Cin * 127^2 < 2^53 at any Cin the model has),
+    """What K3 computes, in plain PyTorch: the conv in f64 (`_conv_f64`),
     rounded to int32 (int8 inputs) or f32 (float inputs), then `epilogue`."""
     _check_shapes(x, w, alpha, beta)
     out_kind = _resolve_out_kind(x, out_kind)
-    acc = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1))
-    acc = acc.permute(0, 2, 3, 1)
+    acc = _conv_f64(x, w)
     acc = acc.to(torch.int32) if x.dtype == torch.int8 else acc.float()
     return epilogue(acc, alpha, beta, out_kind).contiguous()
 

@@ -49,11 +49,10 @@ from typing import Callable, List
 import torch
 import torch.nn.functional as F
 
-from tpu_unet_torch.infer.quant import _tf32_for_bf16_values
 from tpu_unet_torch.models.unet import _max_pool2
 from tpu_unet_torch.ops import enc0_stages as st
 from tpu_unet_torch.ops import fused_level0
-from tpu_unet_torch.ops.conv_tiles import _scalar, quantize_activations
+from tpu_unet_torch.ops.conv_tiles import _scalar, quantize_activations, tf32_for_bf16_values
 from tpu_unet_torch.probes import log, time_ms
 
 BLOCK = (8, 512, 64)
@@ -114,7 +113,7 @@ def _library_level0(x, w1, b1, w2, b2, scale):
     """The production int8 forward's level 0 (`QuantInference._conv_f`
     twice, the int8 capture of the skip and the pool)."""
     def conv(v, w, b):
-        with _tf32_for_bf16_values():
+        with tf32_for_bf16_values():
             y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2),
                          w.float().permute(3, 2, 0, 1))
         return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
