@@ -172,14 +172,33 @@ Phases, each printing its own lines:
      losses, every gradient within 1e-2 of its norm of 'xla''s in bf16 and
      within 1e-4 in f32 (TF32 off), the layers 'auto' sends to 'mm' logged;
      the bf16 step by part under the three, in turns, and a profile of each.
+ 23. the mesh paths (tpu_unet_torch/parallel, TileInference(mesh=)) in rank
+     processes of this script (--mesh-rank), each joined through
+     initialize_multihost() from torchrun's variables: NCCL with one rank
+     per visible card (the DP step, halo inference, meshed evaluate_batch),
+     gloo with 2 ranks sharing the card (the DIC-HeLa DP step at batch 2 a
+     rank with distance weights, halo inference and the halo train step on
+     a 776 x 388 image in strips of 388, meshed evaluate_batch of the
+     serving set bf16, int8, int8-phase and int4-phase on phase 13's
+     weights) and gloo with 4 ranks as a 2 x 2 mesh (the data x spatial
+     halo step on two 776 x 388 images). Each result against this
+     process's run on the same card: forward paths bit for bit (halo
+     logits at the bf16 bar with equal class maps otherwise), train steps'
+     losses within MESH_LOSS_RTOL and momentum within STEP_GRAD_TOL of its
+     norm; every rank's parameters and momentum bit-equal (checksums
+     all-gathered); K1, K2, K3 and the k x k kernel counted per rank by
+     route. A failed rank or a group not done within MESH_TIMEOUT_S fails
+     the run, and every rank still running is stopped. Times of ranks that
+     share one card are printed as such: not a scaling figure.
 The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
 interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
 enc0_conv2_stage, enc0_pool_quant_stage) and of the end-to-end paths
 timed in turns (float serving, research 'fused', the 'pallas' train step)
-with their device idle shares, phase 20's runs, and phases 21-22's
-results; the last line is
+with their device idle shares, phase 20's runs, and phases 21-23's
+results (phase 23's launches per rank under the kernels' mesh_* paths);
+the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
 """
@@ -188,6 +207,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -3196,6 +3216,566 @@ def phase22_conv_bwd(cfg):
     return out
 
 
+# ------------------------------------------------------------------ phase 23
+# The mesh paths (tpu_unet_torch/parallel and TileInference(mesh=)) in rank
+# processes of this script (`chip_smoke.py --mesh-rank SPEC`), each joined
+# through initialize_multihost() from torchrun's variables. NCCL takes one
+# rank per card; ranks that share one card take gloo, named explicitly. Every
+# result is held against the same computation in this (single) process on the
+# same card, from the same weights and inputs.
+
+MESH_TIMEOUT_S = 480           # a group not done by then (a hung collective) fails
+MESH_REPS = 3                  # timed calls after the checked one
+MESH_TIERS = ("bf16", "int8", "int8-phase", "int4-phase")
+# launches per rank per forward (per chunk on the tiles path): {kernel: (all, sm90)}
+MESH_FORWARD_LAUNCHES = {"conv3x3_bias_relu": (18, 17)}
+MESH_TIER_LAUNCHES = {"bf16": MESH_FORWARD_LAUNCHES,
+                      "int8": {"conv3x3_fused": (14, 14)},
+                      "int8-phase": {"conv3x3_fused": (13, 13), "conv_kxk_fused": (2, 2)},
+                      "int4-phase": {"conv_kxk_fused": (2, 2)}}
+MESH_KERNELS = ("conv3x3_bias_relu", "edt_column_pass", "conv3x3_fused", "conv_kxk_fused")
+
+
+def mesh_groups(world_nccl: int):
+    """The groups phase 23 starts: (name, backend, world, {path: mesh shape})."""
+    return [
+        ("nccl", "nccl", world_nccl, {"dp_step": (world_nccl,),
+                                      "halo_inference": (world_nccl,),
+                                      "tiles": (world_nccl,)}),
+        ("gloo2", "gloo", 2, {"dp_step": (2,), "halo_inference": (2,), "halo_step": (2,),
+                              "tiles": (2,)}),
+        ("gloo2x2", "gloo", 4, {"dp_halo_step": (2, 2)}),
+    ]
+
+
+def _kernel_fns():
+    from tpu_unet_torch.ops.conv_kxk import conv_kxk_fused
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
+    from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
+    from tpu_unet_torch.ops.edt_pallas import column_pass
+
+    return dict(zip(MESH_KERNELS, (conv3x3_bias_relu, column_pass, conv3x3_fused,
+                                   conv_kxk_fused)))
+
+
+def _counted(fn, device):
+    """(fn(), {kernel: (launches, sm90 launches)}): every count set to 0 just
+    before the call and read just after it."""
+    fns = _kernel_fns()
+    for k in fns.values():
+        k.launches = k.sm90_launches = 0
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, {name: (k.launches, k.sm90_launches) for name, k in fns.items()}
+
+
+def _mesh_ms(fn, device, reps):
+    """Host ms per call of `fn` over `reps` calls after a warm-up, every rank
+    in step (the calls hold collectives)."""
+    import torch.distributed as dist
+
+    fn()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    if dist.is_initialized():
+        dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _state_checksum(model, opt):
+    """One int64 per parameter and momentum buffer: the sum of its 32-bit
+    words (equal bits give equal sums)."""
+    ts = [p.detach() for p in model.parameters()]
+    ts += [opt.state[p]["momentum_buffer"] for p in model.parameters()]
+    return torch.stack([t.contiguous().view(torch.int32).sum(dtype=torch.int64) for t in ts])
+
+
+def _replicated(model, opt) -> bool:
+    """Every rank's parameters and momentum bit-equal (their checksums
+    all-gathered)."""
+    import torch.distributed as dist
+
+    mine = _state_checksum(model, opt)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return all(torch.equal(mine, other) for other in every)
+
+
+def _fresh(cfg, state, device):
+    from tpu_unet_torch.config import OptimConfig
+    from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.train import make_optimizer
+
+    model = UNet(cfg).to(device)
+    model.load_state_dict(state)
+    return model, make_optimizer(model.parameters(), OptimConfig())
+
+
+def _momentum(model, opt):
+    return {n: opt.state[p]["momentum_buffer"].detach().cpu()
+            for n, p in model.named_parameters()}
+
+
+def _train_result(model, opt, loss, metrics, launches, rank):
+    out = {"loss": float(loss), "metrics": metrics, "launches": launches,
+           "replicated": _replicated(model, opt)}
+    if rank == 0:
+        out["momentum"] = _momentum(model, opt)
+    return out
+
+
+def _mesh_dp_step(inputs, shape, device, reps):
+    import torch.distributed as dist
+    from tpu_unet_torch.losses.weights import make_weight_fn
+    from tpu_unet_torch.parallel import make_dp_train_step, make_mesh, replicate, shard_batch
+
+    mesh = make_mesh(axes=("data",), shape=shape, device=device)
+    model, opt = _fresh(inputs["cfg"], inputs["state"], device)
+    replicate(model, mesh)
+    step = make_dp_train_step(model, make_weight_fn("distance"), "intended", opt, mesh)
+    inp, gt = (shard_batch(inputs[k][:2 * shape[0]].to(device), mesh)
+               for k in ("dp_inp", "dp_gt"))
+    (loss, metrics), launches = _counted(lambda: step(inp, gt), device)
+    out = _train_result(model, opt, loss, metrics.cpu(), launches, dist.get_rank())
+    out["ms"] = _mesh_ms(lambda: step(inp, gt), device, reps)
+    return out
+
+
+def _mesh_halo_inference(inputs, shape, device, reps):
+    import torch.distributed as dist
+    from tpu_unet_torch.parallel import halo_strip_inference, make_mesh, shard_batch
+
+    mesh = make_mesh(axes=("spatial",), shape=shape, device=device)
+    model, _ = _fresh(inputs["cfg"], inputs["state"], device)
+    fwd = halo_strip_inference(model, mesh, inputs["strip"], inputs["strip"])
+    strip = shard_batch(inputs["halo_img"][:shape[0] * inputs["strip"]].to(device), mesh, "spatial")
+    logits, launches = _counted(lambda: fwd(strip), device)
+    out = {"launches": launches, "ms": _mesh_ms(lambda: fwd(strip), device, reps)}
+    if dist.get_rank() == 0:
+        out["logits"] = logits.cpu()
+    return out
+
+
+def _mesh_halo_step(inputs, shape, device, reps):
+    import torch.distributed as dist
+    from tpu_unet_torch.parallel import make_halo_train_step, make_mesh, replicate, shard_batch
+
+    mesh = make_mesh(axes=("spatial",), shape=shape, device=device)
+    model, opt = _fresh(inputs["cfg"], inputs["state"], device)
+    replicate(model, mesh)
+    step = make_halo_train_step(model, opt, mesh, inputs["strip"], inputs["strip"])
+    img, gt = (shard_batch(inputs[k][:shape[0] * inputs["strip"]].to(device), mesh, "spatial")
+               for k in ("halo_img", "halo_gt"))
+    (loss, metrics), launches = _counted(lambda: step(img, gt), device)
+    return _train_result(model, opt, loss, torch.stack(metrics).cpu(), launches,
+                         dist.get_rank())
+
+
+def _mesh_dp_halo_step(inputs, shape, device, reps):
+    import torch.distributed as dist
+    from tpu_unet_torch.parallel import make_dp_halo_train_step, make_mesh, replicate, shard_batch
+
+    mesh = make_mesh(axes=("data", "spatial"), shape=shape, device=device)
+    model, opt = _fresh(inputs["cfg"], inputs["state"], device)
+    replicate(model, mesh)
+    step = make_dp_halo_train_step(model, opt, mesh, inputs["strip"], inputs["strip"])
+
+    def block(x):        # P('data', 'spatial', None)
+        x = shard_batch(x.to(device), mesh, "data").transpose(0, 1)
+        return shard_batch(x, mesh, "spatial").transpose(0, 1)
+
+    imgs, gts = block(inputs["mesh_imgs"]), block(inputs["mesh_gts"])
+    (loss, metrics), launches = _counted(lambda: step(imgs, gts), device)
+    return _train_result(model, opt, loss, torch.stack(metrics).cpu(), launches,
+                         dist.get_rank())
+
+
+def _tier_fns(inputs, model, device):
+    """{tier: the apply_fn TileInference serves it through (None: the model)}."""
+    from tpu_unet_torch.infer.quant import QuantInference
+
+    return {"bf16": None,
+            "int8": QuantInference(inputs["qp8"], impl="pallas", device=device).apply,
+            "int8-phase": QuantInference(inputs["qp8"], impl="pallas", phase_level0="int8",
+                                         device=device).apply,
+            "int4-phase": QuantInference(inputs["qp4"], impl="pallas", phase_level0="int8",
+                                         device=device).apply}
+
+
+def _mesh_tiles(inputs, shape, device, reps):
+    import torch.distributed as dist
+    from tpu_unet_torch.infer import TileInference
+    from tpu_unet_torch.parallel import make_mesh
+
+    mesh = make_mesh(axes=("data",), shape=shape, device=device)
+    model, _ = _fresh(inputs["cfg"], inputs["state"], device)
+    images, labels = inputs["images"].to(device), inputs["labels"].to(device)
+    side = images.shape[-1]
+    out = {}
+    for tier, apply_fn in _tier_fns(inputs, model, device).items():
+        if tier not in inputs["tiers"]:
+            continue
+        eng = TileInference(model, side, side, tile_out=inputs["tile_out"], mesh=mesh,
+                            apply_fn=apply_fn)
+        (metrics, preds), launches = _counted(lambda: eng.evaluate_batch(images, labels),
+                                              device)
+        out[tier] = {"metrics": metrics.cpu(), "launches": launches, "ms": _mesh_ms(
+            lambda: eng.evaluate_batch(images, labels), device, reps)}
+        if dist.get_rank() == 0:
+            out[tier]["preds"] = preds.cpu()
+    return out
+
+
+MESH_PATHS = {"dp_step": _mesh_dp_step, "halo_inference": _mesh_halo_inference,
+              "halo_step": _mesh_halo_step, "dp_halo_step": _mesh_dp_halo_step,
+              "tiles": _mesh_tiles}
+
+
+def mesh_rank_main(spec_path: str) -> None:
+    """One rank of a phase 23 group (`chip_smoke.py --mesh-rank SPEC`): join
+    the group from torchrun's variables, drive the spec's paths, save this
+    rank's results beside the spec."""
+    import torch.distributed as dist
+    from tpu_unet_torch.parallel import initialize_multihost
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    torch.backends.cudnn.allow_tf32 = False        # as the single-process runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if not initialize_multihost(backend=spec["backend"], device=device,
+                                timeout=datetime.timedelta(seconds=spec["timeout_s"])):
+        raise RuntimeError("no rank variables: start through phase 23")
+    rank = dist.get_rank()
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    results = {}
+    for path, shape in spec["paths"].items():
+        t0 = time.perf_counter()
+        results[path] = MESH_PATHS[path](inputs, tuple(shape), device, spec["reps"])
+        if rank == 0:
+            log(f"rank 0 of {spec['name']}: {path} in {time.perf_counter() - t0:.1f} s")
+    torch.save(results, os.path.join(spec["dir"], f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_group(name, backend, world, paths, inputs_path, out_dir):
+    """Start `world` ranks of this script, wait for all of them (at most
+    MESH_TIMEOUT_S), stop every one still running, and return their results;
+    a rank that fails or a group that hangs raises, with each rank's log."""
+    os.makedirs(out_dir, exist_ok=True)
+    spec = {"name": name, "backend": backend, "device": DEVICE, "paths": paths,
+            "inputs": inputs_path, "dir": out_dir, "reps": MESH_REPS,
+            "timeout_s": MESH_TIMEOUT_S}
+    spec_path = os.path.join(out_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                       PYTHONPATH=os.pathsep.join([HERE] + [p for p in [
+                           os.environ.get("PYTHONPATH")] if p]))
+            logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", spec_path],
+                cwd=HERE, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    wall = time.perf_counter() - t0
+    if any(rc != 0 for rc in rcs):
+        for r in range(len(procs)):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            print(f"--- {name} rank {r} (exit {rcs[r]}) ---\n{tail}", flush=True)
+        raise AssertionError(f"phase 23: group {name} ({backend}, {world} ranks) failed or "
+                             f"hung: exit codes {rcs} after {wall:.1f} s")
+    log(f"phase 23: group {name} ({backend}, {world} ranks on {torch.cuda.device_count()} "
+        f"card(s)) done in {wall:.1f} s")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+MESH_LOSS_RTOL = 1e-3          # the train steps' loss: the gradient sums' order only
+# the train steps' per-sample metrics (class maps of the same logits): equal
+# but for pixels whose top-2 margin lies within the forward's rounding
+MESH_METRIC_ATOL = 1e-3
+
+
+def _windows(img, n, strip):
+    """[n * strip, strip] -> the n strips' mirror-padded windows
+    [n, strip + 184, strip + 184, 1], as the halo exchange builds them."""
+    from tpu_unet_torch.ops.pad import reflect_pad
+
+    pad = (TILE_IN - TILE_OUT) // 2
+    padded = reflect_pad(img, pad)
+    return torch.stack([padded[i * strip:i * strip + strip + 2 * pad]
+                        for i in range(n)])[..., None]
+
+
+def _mesh_inputs(cfg, served_state, data, qp8, qp4, n_dp, n_strips, strip):
+    """What every rank reads: the served weights, `n_dp` DIC-HeLa samples,
+    an image of `n_strips` strips and two of 2 strips (normalized) with
+    their labels, the serving set, both quant parameter sets."""
+    from tpu_unet_torch.config import DATASETS
+    from tpu_unet_torch.data import synthetic_dataset
+    from tpu_unet_torch.data.augment import AugmentPipeline
+
+    train = _train_data()
+    arrays = [torch.from_numpy(a).to(DEVICE) for a in (
+        train.images, train.targets, train.crop_log_probs, train.crop_pairs)]
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    inp, gt = AugmentPipeline(DATASETS["DIC-C2DH-HeLa"].augment())(
+        *arrays, np.arange(n_dp) % len(train), gen)
+
+    def images(n, rows, seed):
+        d = synthetic_dataset(n_images=n, h=rows, w=strip, crop=strip, seed=seed)
+        lo = d.images.min(axis=(1, 2), keepdims=True)
+        img = (d.images - lo) / np.maximum(d.images.max(axis=(1, 2), keepdims=True) - lo, 1e-12)
+        return (torch.from_numpy(img.astype(np.float32)),
+                torch.from_numpy((d.targets > 127).astype(np.int32)))
+
+    halo_img, halo_gt = images(1, n_strips * strip, 231)
+    mesh_imgs, mesh_gts = images(2, 2 * strip, 232)
+    return {"cfg": cfg, "state": served_state, "strip": strip, "tile_out": TILE_OUT,
+            "dp_inp": inp.cpu(), "dp_gt": gt.cpu(), "halo_img": halo_img[0],
+            "halo_gt": halo_gt[0], "mesh_imgs": mesh_imgs, "mesh_gts": mesh_gts,
+            "images": torch.from_numpy(data.images),
+            "labels": torch.from_numpy((data.targets > 127).astype(np.uint8)),
+            "qp8": qp8, "qp4": qp4, "tiers": MESH_TIERS}
+
+
+def _single_train(inputs, kind, n):
+    """The single-process counterpart of a mesh train step, from the same
+    weights: (loss, metrics, momentum, ms per step or None)."""
+    from tpu_unet_torch.losses.bce import binary_cross_entropy
+    from tpu_unet_torch.losses.weights import class_balance, make_weight_fn
+    from tpu_unet_torch.train.trainer import make_train_step
+
+    model, opt = _fresh(inputs["cfg"], inputs["state"], DEVICE)
+    if kind == "dp_step":
+        step = make_train_step(model, make_weight_fn("distance"), "intended", opt)
+        inp, gt = inputs["dp_inp"][:n].to(DEVICE), inputs["dp_gt"][:n].to(DEVICE)
+        loss, metrics = step(inp, gt)
+        out = (loss.item(), metrics.cpu(), _momentum(model, opt))
+        return out + (_mesh_ms(lambda: step(inp, gt), DEVICE, MESH_REPS),)
+    # the halo steps' oracle: every strip's window in one batch, class balance
+    # per image, the mean over all pixels (kind 'halo_step': one image of n
+    # strips; 'dp_halo_step': the 2 images of 2 strips each)
+    s = inputs["strip"]
+    if kind == "halo_step":
+        imgs, gts = inputs["halo_img"][None, :n * s], inputs["halo_gt"][None, :n * s]
+    else:
+        imgs, gts = inputs["mesh_imgs"], inputs["mesh_gts"]
+    imgs, gts = imgs.to(DEVICE), gts.to(DEVICE)
+    n_s = imgs.shape[1] // s
+    windows = torch.cat([_windows(i, n_s, s) for i in imgs])
+    opt.zero_grad(set_to_none=True)
+    logits = model(windows).reshape(*gts.shape, -1)
+    loss = (class_balance(gts)[..., None] * binary_cross_entropy(logits, gts)).mean()
+    loss.backward()
+    opt.step()
+    with torch.no_grad():
+        p, g = logits.argmax(-1) != 0, gts != 0
+        inter, union = (p & g).sum((1, 2)).float(), (p | g).sum((1, 2)).float()
+        pe = (logits.argmax(-1) - gts).abs().sum((1, 2)).float() / float(n_s * s * s)
+        if kind == "halo_step":
+            metrics = torch.stack([inter[0] / union[0], pe[0]])
+        else:
+            metrics = torch.stack([(inter / union.clamp_min(1.0)).mean(), pe.mean()])
+    return loss.item(), metrics.cpu(), _momentum(model, opt), None
+
+
+def _momentum_err(got, want) -> float:
+    """The worst tensor's relative L2 error (phase 7's measure)."""
+    return max(((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)).item()
+               for n in want)
+
+
+def _check_mesh_launches(where, got, want, failed):
+    """Per rank: each kernel's (launches, sm90 launches) as `want` has them
+    (absent: none), K2 at least once and all on sm90 where want names it
+    with None."""
+    for kernel in MESH_KERNELS:
+        w = want.get(kernel, (0, 0))
+        g = tuple(got[kernel])
+        ok = (g[0] >= 1 and g[1] == g[0]) if w is None else g == w
+        if not ok:
+            failed.append(f"{where}: {kernel} launches {g}, want "
+                          f"{'>= 1, all sm90' if w is None else w}")
+
+
+def phase23_mesh(smi, cfg, served_state, data, qp8, qp4):
+    """The mesh paths in rank processes (NCCL one rank per card; gloo, 2
+    ranks sharing the card and a 2 x 2 mesh of 4), each result held against
+    this process's run on the same card: train steps at MESH_LOSS_RTOL and
+    STEP_GRAD_TOL (momentum after one step), halo logits and served maps bit
+    for bit, every rank's parameters and momentum bit-equal, launches by
+    route per rank. Times of ranks sharing one card are not a scaling
+    figure. Returns a summary dict."""
+    from tpu_unet_torch.infer import TileInference
+
+    t_phase = time.perf_counter()
+    world_nccl = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    strip = TILE_OUT
+    root = os.path.join(HERE, "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    groups = mesh_groups(world_nccl)
+    sizes = {path: max([math.prod(paths[path]) for _, _, _, paths in groups if path in paths],
+                       default=1) for path in MESH_PATHS}
+    inputs = _mesh_inputs(cfg, served_state, data, qp8, qp4, 2 * sizes["dp_step"],
+                          max(sizes["halo_inference"], sizes["halo_step"]), strip)
+    inputs_path = os.path.join(root, "inputs.pt")
+    torch.save(inputs, inputs_path)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True           # as in the ranks
+
+    # the single-process runs, from the same weights and inputs
+    single = {}
+    for name, _, world, paths in groups:
+        for path, shape in paths.items():
+            n = math.prod(shape)
+            if (path, n) in single or path == "tiles":
+                continue
+            if path == "halo_inference":
+                model, _ = _fresh(cfg, served_state, DEVICE)
+                windows = _windows(inputs["halo_img"][:n * strip].to(DEVICE), n, strip)
+                with torch.inference_mode():
+                    fwd = lambda: model(windows).reshape(n * strip, strip, -1)  # noqa: E731
+                    single[(path, n)] = (fwd().cpu(), _mesh_ms(fwd, DEVICE, MESH_REPS))
+            else:
+                single[(path, n)] = _single_train(inputs, path, 2 * n if path == "dp_step"
+                                                  else n)
+    model, _ = _fresh(cfg, served_state, DEVICE)
+    images, labels = inputs["images"].to(DEVICE), inputs["labels"].to(DEVICE)
+    side = images.shape[-1]
+    for tier, apply_fn in _tier_fns(inputs, model, DEVICE).items():
+        eng = TileInference(model, side, side, tile_out=TILE_OUT, apply_fn=apply_fn)
+        metrics, preds = eng.evaluate_batch(images, labels)
+        single[("tiles", tier)] = (metrics.cpu(), preds.cpu(), _mesh_ms(
+            lambda: eng.evaluate_batch(images, labels), DEVICE, MESH_REPS))
+    n_tiles = len(data) * eng.plan.num_tiles
+    del model, eng
+    torch.backends.cudnn.deterministic = deterministic
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()           # leave the card's memory to the ranks
+
+    failed, summary, launches = [], {}, {}
+    for name, backend, world, paths in groups:
+        ranks = run_mesh_group(name, backend, world, paths, inputs_path,
+                               os.path.join(root, name))
+        cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+        # ranks that share a card: their times are no scaling figure
+        timing = ("shared-card" if world > cards else "one rank a card")
+        res = summary[name] = {"backend": backend, "ranks": world, "cards": cards,
+                               "timing": timing}
+        for path, shape in paths.items():
+            n = math.prod(shape)
+            got = ranks[0][path]
+            where = f"{name} {path} {shape}"
+            if path in ("dp_step", "halo_step", "dp_halo_step"):
+                loss, metrics, momentum, ms = single[(path, n)]
+                err = _momentum_err(got["momentum"], momentum)
+                metric_err = (got["metrics"] - metrics).abs().max().item()
+                res[path] = {"loss": got["loss"], "single_loss": loss, "momentum_rel_err": err,
+                             "metrics_max_abs_err": metric_err,
+                             "replicated": [r[path]["replicated"] for r in ranks]}
+                if not abs(got["loss"] - loss) <= MESH_LOSS_RTOL * abs(loss):
+                    failed.append(f"{where}: loss {got['loss']!r}, single {loss!r}")
+                if not err <= STEP_GRAD_TOL:
+                    failed.append(f"{where}: momentum relative error {err:.3g}")
+                if not metric_err <= MESH_METRIC_ATOL:
+                    failed.append(f"{where}: metrics differ by {metric_err:.3g}")
+                if not all(res[path]["replicated"]):
+                    failed.append(f"{where}: ranks' parameters or momentum differ "
+                                  f"{res[path]['replicated']}")
+                if path == "dp_step":
+                    res[path].update(ms=[r[path]["ms"] for r in ranks], single_ms=ms)
+                    log(f"phase 23: {where}: step {res[path]['ms']} ms a rank ({timing}) "
+                        f"against {ms} ms for the global batch of {2 * n} in one process")
+                want = dict(MESH_FORWARD_LAUNCHES, **(
+                    {"edt_column_pass": None} if path == "dp_step" else {}))
+                lines = [(path, want, [r[path]["launches"] for r in ranks])]
+                log(f"phase 23: {where}: loss {got['loss']!r} (single process {loss!r}), "
+                    f"momentum within {err:.3g} of its norm, metrics within {metric_err:.3g}, "
+                    f"ranks' state bit-equal {res[path]['replicated']}")
+            elif path == "halo_inference":
+                want_logits, ms = single[(path, n)]
+                diff = (got["logits"] - want_logits).abs().max().item()
+                scale = want_logits.abs().max().item()
+                equal = torch.equal(got["logits"], want_logits)
+                maps = torch.equal(got["logits"].argmax(-1), want_logits.argmax(-1))
+                res[path] = {"bit_equal": equal, "max_abs_err": diff, "class_maps_equal": maps,
+                             "ms": [r[path]["ms"] for r in ranks], "single_ms": ms}
+                if not (equal or (diff <= BF16_TOL * scale and maps)):
+                    failed.append(f"{where}: logits differ by {diff:.3g} (scale {scale:.3g}), "
+                                  f"class maps equal {maps}")
+                lines = [(path, MESH_FORWARD_LAUNCHES, [r[path]["launches"] for r in ranks])]
+                log(f"phase 23: {where}: logits [{n * strip}, {strip}, 2] "
+                    f"{'equal' if equal else f'within {diff:.3g}'} to the single-process "
+                    f"windows'; {timing} ms {res[path]['ms']} against {ms} in one process")
+            else:
+                res[path], lines = {}, []
+                for tier in MESH_TIERS:
+                    metrics, preds, ms = single[("tiles", tier)]
+                    same = [np.array_equal(r[path][tier]["metrics"].numpy(), metrics.numpy(),
+                                           equal_nan=True) for r in ranks]
+                    maps = torch.equal(got[tier]["preds"], preds)
+                    ms_mesh = [r[path][tier]["ms"] for r in ranks]
+                    res[path][tier] = {
+                        "class_maps_equal": maps, "metrics_equal": same,
+                        "tiles_per_s": n_tiles / (ms_mesh[0] / 1e3),
+                        "single_tiles_per_s": n_tiles / (ms / 1e3)}
+                    if not (maps and all(same)):
+                        failed.append(f"{where} {tier}: class maps equal {maps}, metrics "
+                                      f"equal per rank {same}")
+                    lines.append((f"{path}_{tier}", MESH_TIER_LAUNCHES[tier],
+                                  [r[path][tier]["launches"] for r in ranks]))
+                    log(f"phase 23: {where} evaluate_batch {tier}: maps and metrics "
+                        f"{'equal' if maps and all(same) else 'DIFFER'} on every rank; "
+                        f"{res[path][tier]['tiles_per_s']:.1f} tiles/s {timing} against "
+                        f"{res[path][tier]['single_tiles_per_s']:.1f} in one process")
+            for key, want, per_rank in lines:
+                for r, got_launches in enumerate(per_rank):
+                    _check_mesh_launches(f"{name} rank {r} {key}", got_launches, want, failed)
+                launches[f"{name}_{key}"] = per_rank[0]
+    shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise AssertionError("phase 23 failed:\n  " + "\n  ".join(failed))
+    log(f"phase 23: ok in {time.perf_counter() - t_phase:.1f} s ({smi.splitlines()[0]}; "
+        f"times of ranks sharing one card are not a scaling figure)")
+    return {"groups": summary, "launches": launches}
+
+
 # (name, source, the TPU kernel it replaces, the formulation it runs on)
 RESEARCH_KERNELS = [
     ("enc0_chain", "tpu_unet_torch/csrc/enc0_chain.cu", "tpu_unet/ops/fused_level0.py:136",
@@ -3282,6 +3862,13 @@ def stage_kernel_lines(errs, times, launches):
     } for name, key, forms, replaces, also in STAGE_KERNELS]
 
 
+def _mesh_paths(mesh, name):
+    """{'mesh_<group>_<path>': launches per rank} of kernel `name` on phase
+    23's paths that launch it (rank 0's count; every rank's is gated)."""
+    return {f"mesh_{key}": counts[name][0] for key, counts in mesh["launches"].items()
+            if counts[name][0]}
+
+
 def _by_route(launches, name):
     """{route: launches} of kernel `name` from a {name, name_sm90} count."""
     return {"sm90": launches[f"{name}_sm90"],
@@ -3340,6 +3927,9 @@ def main() -> None:
     cli_runs, cli_errs = phase20_cli(smi, cfg, served_state)
     int4 = phase21_int4(cfg, served_state, data, qp)
     conv_bwd = phase22_conv_bwd(cfg)
+    from tpu_unet_torch.infer.quant import load_quant_params
+    qp4 = load_quant_params(os.path.join(HERE, "build", "chip_smoke_int4.npz"))
+    mesh = phase23_mesh(smi, cfg, served_state, data, qp, qp4)
     cli_launches = {name: {k: v[0] for k, v in r["launches"].items()}
                     for name, r in cli_runs.items() if "launches" in r}
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
@@ -3363,7 +3953,8 @@ def main() -> None:
                              "cli_test_pallas": cli_launches["TESTING pallas bf16"][
                                  "conv3x3_bias_relu"],
                              "serve_int4_calibration": int4["launches"][
-                                 "serve_int4_calibration"][0]},
+                                 "serve_int4_calibration"][0],
+                             **_mesh_paths(mesh, "conv3x3_bias_relu")},
         "launches_by_route": {"serve": serve_launches,
                               "train": {"sm90": launches["conv3x3_bias_relu_sm90"],
                                         "simple": launches["conv3x3_bias_relu"]
@@ -3398,7 +3989,8 @@ def main() -> None:
         "routes": {"sm90": "column_pass (edt_batch)",
                    "simple": "_column_pass_route_forward only"},
         "launches_by_path": {"train": launches["edt_column_pass"],
-                             "cli_train": cli_launches["TRAINING"]["edt_column_pass"]},
+                             "cli_train": cli_launches["TRAINING"]["edt_column_pass"],
+                             **_mesh_paths(mesh, "edt_column_pass")},
         "launches_by_route": {"train": {"sm90": launches["edt_column_pass_sm90"],
                                         "simple": launches["edt_column_pass"]
                                         - launches["edt_column_pass_sm90"]}},
@@ -3426,7 +4018,8 @@ def main() -> None:
                                  "conv3x3_fused"],
                              "cli_test_pallas_int8_phase": cli_launches[
                                  "TESTING pallas int8-phase"]["conv3x3_fused"],
-                             "serve_int4": int4["launches"]["serve_int4"][0]},
+                             "serve_int4": int4["launches"]["serve_int4"][0],
+                             **_mesh_paths(mesh, "conv3x3_fused")},
         "launches_by_route": {
             "serve_int8": int8_launches,
             "serve_int4": {"sm90": int4["launches"]["serve_int4"][1],
@@ -3459,7 +4052,8 @@ def main() -> None:
                              "probe": probe_launches,
                              "cli_test_pallas_int8_phase": cli_launches[
                                  "TESTING pallas int8-phase"]["conv_kxk_fused"],
-                             "serve_int4_phase": int4["launches"]["serve_int4_phase"][0]},
+                             "serve_int4_phase": int4["launches"]["serve_int4_phase"][0],
+                             **_mesh_paths(mesh, "conv_kxk_fused")},
         "launches_by_route": {"serve_int8_phase": _by_route(phase_launches, "conv_kxk_fused")},
         "ms_by_route": {"sm90": kxk_ms["kernel"], "simple": kxk_ms["simple"]},
         "per_shape": kxk_ms["per_shape"],
@@ -3495,7 +4089,7 @@ def main() -> None:
         "train_step_ms": step_ms, "step_pallas_vs_xla_grad_rel_err": step_err,
         "phase_level0_train_step_ms": phase_train_ms,
         "cli_runs": cli_runs, "cli_served_logits_max_abs_err": cli_errs["served_logits"],
-        "int4": int4, "conv_bwd": conv_bwd}),
+        "int4": int4, "conv_bwd": conv_bwd, "mesh": mesh["groups"]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3503,4 +4097,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2])
+    else:
+        main()

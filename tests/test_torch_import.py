@@ -1,5 +1,6 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
-interpreter imports every module of tpu_unet_torch, runs a tiny evaluate()
+interpreter imports every module of tpu_unet_torch (the parallel layer
+included, which starts no process group), runs a tiny evaluate()
 (float with its TIFF export, int8 and int8-phase), the phase-packed model, a
 tiny research int8 forward (fused and paired), a tiny Trainer.fit() and the
 CLI's TESTING of its checkpoint, and finds no `jax`, `triton`, `tpu_unet` or
@@ -25,8 +26,11 @@ walked = {"tpu_unet_torch.ops.gather", "tpu_unet_torch.ops.enc0_stages",
           "tpu_unet_torch.probes.gather_probe", "tpu_unet_torch.probes.mosaic_probe",
           "tpu_unet_torch.cli", "tpu_unet_torch.data.download", "tpu_unet_torch.data.tiff",
           "tpu_unet_torch.ops.morphology", "tpu_unet_torch.utils.profiling",
-          "tpu_unet_torch.utils.debug"}
+          "tpu_unet_torch.utils.debug", "tpu_unet_torch.parallel.mesh",
+          "tpu_unet_torch.parallel.halo", "tpu_unet_torch.parallel.distributed"}
 assert walked <= set(sys.modules), walked - set(sys.modules)
+import torch.distributed
+assert not torch.distributed.is_initialized(), "a process group was started at import"
 
 from tpu_unet_torch.config import DatasetConfig, ModelConfig, TrainConfig
 from tpu_unet_torch.data import synthetic_dataset

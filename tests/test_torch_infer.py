@@ -4,6 +4,7 @@ infer/tiles.py, infer/tester.py, data/) — against the JAX package on the CPU.
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -164,11 +165,14 @@ def test_flat_path_honours_batch_tiles():
 
 
 def test_engine_rejects_small_tiles_and_mesh():
+    """tile_out under one pooling period, and a mesh axis the mesh lacks
+    (the meshed engine itself: tests/test_torch_parallel.py)."""
     model = UNet(ModelConfig(base_width=2))
     with pytest.raises(ValueError, match=">= 16"):
         TileInference(model, 64, 64, tile_out=12)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TileInference(model, 64, 64, tile_out=36, mesh=object())
+    mesh = SimpleNamespace(mesh_dim_names=("data", "spatial"))
+    with pytest.raises(ValueError, match="no axis 'tiles'"):
+        TileInference(model, 64, 64, tile_out=36, mesh=mesh, mesh_axis="tiles")
 
 
 def test_make_tile_batch_forward():

@@ -11,6 +11,8 @@ tile and stitch int32 class maps per image. Tile origins are aligned to the
 pooling period, so overlapping tiles agree and argmax-then-stitch is exact.
 
 Everything runs on the model's device under ``torch.inference_mode()``.
+On a mesh, each chunk's tiles are spread over the ranks of one axis and the
+results gathered, so every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tpu_unet_torch.core.geometry import TilePlan, input_size_compute, plan_tile
 from tpu_unet_torch.losses.metrics import batch_evaluation_metrics
 from tpu_unet_torch.models.unet import center_crop_or_pad
 from tpu_unet_torch.ops.pad import reflect_pad
+from tpu_unet_torch.parallel.mesh import all_gather_cat, axis_size
 
 #: Smallest tile_out: below one pooling period (16 px) the planned stride
 #: exceeds the tile and the plan leaves gaps between tiles.
@@ -35,19 +38,25 @@ class TileInference:
 
     def __init__(self, model, image_h: int, image_w: int,
                  tile_out=None, batch_tiles: int = 16,
-                 normalize: bool = True, mesh=None, apply_fn=None):
+                 normalize: bool = True, mesh=None, mesh_axis: str = "data",
+                 apply_fn=None):
         """`model`: a `tpu_unet_torch.models.UNet` holding its weights on the
         device to run on. tile_out=None plans one whole-image tile; an
         (h, w) pair plans rectangular strip tiles. `batch_tiles` tiles go
         through the model per forward, on every entry point.
 
+        `mesh`: a ``DeviceMesh`` (parallel/mesh.py::make_mesh) whose
+        `mesh_axis` spreads each chunk of tiles over its ranks: each rank
+        runs its block, the results are gathered, and every rank stitches
+        and returns the whole result. batch_tiles is rounded up to a
+        multiple of the axis size.
+
         `apply_fn(tiles) -> logits` replaces the model's forward for the
         tile batches, e.g. an int8 `QuantInference.apply` (infer/quant.py);
         the model then only names the device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded tile inference is not ported yet (ROADMAP "
-                "queue 1, item 12)")
+        if mesh is not None and mesh_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh has no axis {mesh_axis!r} "
+                             f"(axes {mesh.mesh_dim_names})")
         if tile_out is None:
             tile_out = input_size_compute(max(image_h, image_w))[2]
         if min(tile_out if isinstance(tile_out, tuple) else (tile_out,)) < MIN_TILE_OUT:
@@ -61,6 +70,10 @@ class TileInference:
         self.plan: TilePlan = plan_tiles(image_h, image_w, tile_out)
         self.batch_tiles = batch_tiles
         self.normalize = normalize
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        if mesh is not None:
+            n = axis_size(mesh, mesh_axis)
+            self.batch_tiles = -(-batch_tiles // n) * n
 
     def _on_device(self, a, dtype=None) -> torch.Tensor:
         if not torch.is_tensor(a):
@@ -92,9 +105,14 @@ class TileInference:
 
     def _chunks(self, flat: torch.Tensor):
         """Split `flat` into `batch_tiles`-sized chunks; the last is filled
-        up by cycling the real tiles, so every forward sees one batch size."""
+        up by cycling the real tiles, so every forward sees one batch size.
+        On a mesh a chunk stays a positive multiple of the axis size, filled
+        up from fewer tiles than that too."""
         m = flat.shape[0]
         c = min(self.batch_tiles, m)
+        if self.mesh is not None:
+            n = axis_size(self.mesh, self.mesh_axis)
+            c = min(self.batch_tiles, -(-m // n) * n)
         n_chunks = -(-m // c)
         pad_m = n_chunks * c - m
         if pad_m:
@@ -102,12 +120,24 @@ class TileInference:
             flat = torch.cat([flat, flat.repeat(reps, 1, 1, 1)[:pad_m]], dim=0)
         return flat.split(c)
 
+    def _sharded(self, fn, chunk: torch.Tensor) -> torch.Tensor:
+        """fn(chunk); on a mesh, fn of this rank's block of the chunk, the
+        blocks gathered in order."""
+        if self.mesh is None:
+            return fn(chunk)
+        b = chunk.shape[0] // axis_size(self.mesh, self.mesh_axis)
+        i = self.mesh.get_local_rank(self.mesh_axis)
+        return all_gather_cat(fn(chunk[i * b:(i + 1) * b]), self.mesh, self.mesh_axis)
+
+    def _ids(self, tile_batch: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self._forward(tile_batch), dim=-1).int()
+
     @torch.inference_mode()
     def predict_logits(self, image) -> torch.Tensor:
         """[H, W] -> [H, W, C] f32 logits."""
         p = self.plan
         flat = self._flat_tiles(self._on_device(image, torch.float32)[None])
-        out = torch.cat([self._forward(c) for c in self._chunks(flat)])
+        out = torch.cat([self._sharded(self._forward, c) for c in self._chunks(flat)])
         canvas = torch.zeros((p.canvas_h, p.canvas_w, out.shape[-1]),
                              dtype=out.dtype, device=out.device)
         to_h, to_w = p.tile_out_hw
@@ -121,8 +151,7 @@ class TileInference:
 
     def _forward_flat_ids(self, flat: torch.Tensor) -> torch.Tensor:
         """[M, ti_h, ti_w, 1] -> [M, to_h, to_w] int32 argmax class ids."""
-        ids = [torch.argmax(self._forward(c), dim=-1).int()
-               for c in self._chunks(flat)]
+        ids = [self._sharded(self._ids, c) for c in self._chunks(flat)]
         return torch.cat(ids)[:flat.shape[0]]
 
     def _stitch_ids(self, tile_ids: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,15 @@ def one_hot_targets(labels: torch.Tensor) -> torch.Tensor:
     return torch.stack([1.0 - y, y], dim=-1)
 
 
+def binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Unweighted per-element BCE of logits [..., C] against
+    one_hot(labels [...]), f32 [..., C]."""
+    z = one_hot_targets(labels)
+    x = logits.float()
+    # stable BCE with logits: max(x, 0) - x z + log(1 + exp(-|x|))
+    return torch.clamp_min(x, 0.0) - x * z + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
                              weights: torch.Tensor, broadcast: str = "intended",
                              reduction: str = "mean") -> torch.Tensor:
@@ -30,10 +39,7 @@ def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     logits [B, h, w, C] (C = 2), labels [B, h, w] int in {0, 1}, weights
     [B, h, w] f32. reduction 'mean' -> scalar; 'per_sample' -> [B]
     per-sample means (their mean is the overall mean)."""
-    z = one_hot_targets(labels)
-    x = logits.float()
-    # stable BCE with logits: max(x, 0) - x z + log(1 + exp(-|x|))
-    bce = torch.clamp_min(x, 0.0) - x * z + torch.log1p(torch.exp(-torch.abs(x)))
+    bce = binary_cross_entropy(logits, labels)
     if broadcast == "intended":
         w = weights[..., None]
     elif broadcast == "parity":
