@@ -1,0 +1,8 @@
+"""serve.idle_pct: the share of the traced serving window in which the card
+(rank 0's on a mesh) ran no operation, 100 * (1 - busy / window)."""
+
+
+def read(t):
+    if "tiles" not in t.counters or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
