@@ -69,6 +69,7 @@ from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int4_
                                            quantize_activations_u4s, quantize_weights,
                                            quantize_weights_int4, requantize_i8_to_u4s,
                                            requantize_u4s_to_i8, tf32_for_bf16_values)
+from tpu_unet_torch.utils.profiling import span
 
 # 4-bit activation scales come from the int8 calibration: the clip range is
 # the same, only the level count changes (shifted-u4 has 16 levels, s4 15).
@@ -285,12 +286,14 @@ class QuantInference:
         (q + 8) * s4 in f32, rounded to bf16."""
         if s is None:
             return v
-        if isinstance(s, tuple):
-            return ((v.float() + 8.0) * self._scalar(s[1])).to(torch.bfloat16)
-        return v.to(torch.bfloat16) * self._scalar(s, torch.bfloat16)
+        with span("quant.convert"):
+            if isinstance(s, tuple):
+                return ((v.float() + 8.0) * self._scalar(s[1])).to(torch.bfloat16)
+            return v.to(torch.bfloat16) * self._scalar(s, torch.bfloat16)
 
     def _quantize(self, v: torch.Tensor, s: float) -> torch.Tensor:
-        return quantize_activations(v, self._scalar(s))
+        with span("quant.convert"):
+            return quantize_activations(v, self._scalar(s))
 
     def _epilogue_vectors(self, name: str, s_in: float, paired: bool = False):
         """alpha = s_in * s_w / s_out and beta = bias / s_out in f32,
@@ -335,9 +338,10 @@ class QuantInference:
 
     def _conv_f(self, name: str, v: torch.Tensor, paired: bool = False) -> torch.Tensor:
         k, b = self._paired_weights(name) if paired else self._fconv[name]
-        with tf32_for_bf16_values():
-            y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
-        return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+        with span("quant.float"):
+            with tf32_for_bf16_values():
+                y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
+            return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
     def _conv(self, name: str, v: torch.Tensor, s_in, paired: bool = False):
         """One 3x3 conv + ReLU. (v, s_in) -> (v, s_out); s None = float
@@ -352,27 +356,31 @@ class QuantInference:
                 s_in4 = s_in[1]
             elif s_in is None:
                 s_in4 = qp.scales[self._input_scale_key(name)] * _U4
-                v = quantize_activations_u4s(v, self._scalar(s_in4))
+                with span("quant.convert"):
+                    v = quantize_activations_u4s(v, self._scalar(s_in4))
             else:                                  # int8 at scale s_in
                 s_in4 = s_in * _U4
-                v = requantize_i8_to_u4s(v, s_in, s_in4)
+                with span("quant.convert"):
+                    v = requantize_i8_to_u4s(v, s_in, s_in4)
             alpha, beta = self._epilogue_vectors(name, s_in4)
             y = conv3x3_int4_xla(v, self._wq4[name], alpha, beta, out_kind="u4s",
                                  shifted=True)
             return y, ("u4s", qp.scales[name] * _U4)
         if name not in qp.qnames:
             return self._conv_f(name, self._deq(v, s_in), paired=paired), None
-        if isinstance(s_in, tuple):
-            # u4s feeding an int8 conv: requantize to the tensor's calibrated
-            # int8 scale (the exact requantize of the dequantized value)
-            s4, s_in = s_in[1], qp.scales[self._input_scale_key(name)]
-            v = requantize_u4s_to_i8(v, s4, s_in)
-        elif s_in is None:
-            s_in = qp.scales[self._input_scale_key(name)]
-            v = self._quantize(v, s_in)
+        with span("quant.convert"):
+            if isinstance(s_in, tuple):
+                # u4s feeding an int8 conv: requantize to the tensor's
+                # calibrated int8 scale (the exact requantize of the
+                # dequantized value)
+                s4, s_in = s_in[1], qp.scales[self._input_scale_key(name)]
+                v = requantize_u4s_to_i8(v, s4, s_in)
+            elif s_in is None:
+                s_in = qp.scales[self._input_scale_key(name)]
+                v = self._quantize(v, s_in)
+            v = v.contiguous()
         alpha, beta = self._epilogue_vectors(name, s_in, paired)
         w_q = self._paired_weights(name) if paired else self._wq[name]
-        v = v.contiguous()
         if self.layer_impl.get(name, self.impl) == "xla":
             return conv3x3_int8_xla(v, w_q, alpha, beta, out_kind="int8"), qp.scales[name]
         y = conv3x3_fused(v, w_q, alpha, beta, out_kind="int8",
@@ -390,20 +398,21 @@ class QuantInference:
         w_q = self._wq4[name]
         c_skip = qp.cfg.widths[d]
         sk, sk_s = skip
-        if isinstance(sk_s, tuple):
-            s_sk4 = sk_s[1]
-        elif sk_s is None:
-            s_sk4 = qp.scales[f"enc{d}_conv2"] * _U4
-            sk = quantize_activations_u4s(sk, self._scalar(s_sk4))
-        else:
-            s_sk4 = sk_s * _U4
-            sk = requantize_i8_to_u4s(sk, sk_s, s_sk4)
-        # shifted-u4 stores a zero activation as -8: the parity variant's pad
-        # fills -8, or the +8 * sum(w) correction would add a phantom
-        # activation across the padded region
-        sk = center_crop_or_pad(sk, u.shape[1:3], fill=-8)
         s_up4 = qp.scales[f"up{d}"] * _S4
-        u_q = quantize_activations_s4(u, self._scalar(s_up4))
+        with span("quant.convert"):
+            if isinstance(sk_s, tuple):
+                s_sk4 = sk_s[1]
+            elif sk_s is None:
+                s_sk4 = qp.scales[f"enc{d}_conv2"] * _U4
+                sk = quantize_activations_u4s(sk, self._scalar(s_sk4))
+            else:
+                s_sk4 = sk_s * _U4
+                sk = requantize_i8_to_u4s(sk, sk_s, s_sk4)
+            # shifted-u4 stores a zero activation as -8: the parity variant's
+            # pad fills -8, or the +8 * sum(w) correction would add a phantom
+            # activation across the padded region
+            sk = center_crop_or_pad(sk, u.shape[1:3], fill=-8)
+            u_q = quantize_activations_s4(u, self._scalar(s_up4))
         acc_sk = conv3x3_int4_acc(sk, w_q[:, :, :c_skip], shifted=True)
         acc_up = conv3x3_int4_acc(u_q, w_q[:, :, c_skip:], shifted=False)
         # two products and a sum, each rounded to f32, as JAX rounds them
@@ -415,16 +424,17 @@ class QuantInference:
         """2x2 stride-2 transposed conv, f32 sums of bf16 values, + f32 bias,
         one bf16 rounding."""
         wt, b = self._up[name]
-        x = v.to(torch.bfloat16).float()
-        with tf32_for_bf16_values():
-            if self.upconv_impl == "matmul":
-                bsz, h, w, cin = x.shape
-                co = wt.shape[1]
-                y = x.reshape(-1, cin) @ wt.permute(0, 2, 3, 1).reshape(cin, 4 * co)
-                y = (y.reshape(bsz, h, w, 2, 2, co) + b).to(torch.bfloat16)
-                return y.permute(0, 1, 3, 2, 4, 5).reshape(bsz, 2 * h, 2 * w, co)
-            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2)
-        return (y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+        with span("quant.float"):
+            x = v.to(torch.bfloat16).float()
+            with tf32_for_bf16_values():
+                if self.upconv_impl == "matmul":
+                    bsz, h, w, cin = x.shape
+                    co = wt.shape[1]
+                    y = x.reshape(-1, cin) @ wt.permute(0, 2, 3, 1).reshape(cin, 4 * co)
+                    y = (y.reshape(bsz, h, w, 2, 2, co) + b).to(torch.bfloat16)
+                    return y.permute(0, 1, 3, 2, 4, 5).reshape(bsz, 2 * h, 2 * w, co)
+                y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2)
+            return (y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
     # -- the phase-packed level 0 -------------------------------------------
 
@@ -515,15 +525,17 @@ class QuantInference:
                        ) -> torch.Tensor:
         """relu(conv2x2(v, k) + b) of bf16 values summed in f32 (k packed
         OIHW), one bf16 rounding: a packed float conv."""
-        with tf32_for_bf16_values():
-            y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
-        return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
+        with span("quant.float"):
+            with tf32_for_bf16_values():
+                y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2), k)
+            return torch.relu(y.permute(0, 2, 3, 1) + b).to(torch.bfloat16)
 
     def _conv_packed_i8(self, name: str, v: torch.Tensor, spec: tuple) -> torch.Tensor:
         """A packed int8 conv (int8 in, int8 out): the Hopper kernel under
         'pallas', the library route under 'xla'."""
         _, wp, alpha, beta, _ = spec
-        v = v.contiguous()
+        with span("quant.convert"):
+            v = v.contiguous()
         if self.layer_impl.get(name, self.impl) == "xla":
             return conv3x3_int8_xla(v, wp, alpha, beta, out_kind="int8")
         return conv_rows3_col(v, wp, alpha, beta)
@@ -534,13 +546,14 @@ class QuantInference:
         packed dec0 convs and the head; depth-to-space only on the logits."""
         qp, P = self.qp, self._phase
         km, bm = P["up0"]
-        with tf32_for_bf16_values():
+        with span("quant.float"), tf32_for_bf16_values():
             u = (self._deq(v, s).to(torch.bfloat16).float() @ km + bm).to(torch.bfloat16)
         if cut("up0", u):
             return u
         sk_p, sk_s = skip
         # the full-resolution margin is the packed sizes' difference
-        skc = ph.phase_crop(sk_p, sk_p.shape[1] - u.shape[1])
+        with span("quant.convert"):
+            skc = ph.phase_crop(sk_p, sk_p.shape[1] - u.shape[1])
         spec = P["dec0_conv1"]
         if spec[0] == "int8":
             _, wsk, wup, a_sk, a_up, beta, s_out, s_sk, s_up = spec
@@ -551,10 +564,11 @@ class QuantInference:
             v, s = torch.round(y).clamp_(0.0, 127.0).to(torch.int8), s_out
         else:
             _, ksk, kup, bb = spec
-            skb = self._deq(skc, sk_s).to(torch.bfloat16).float().permute(0, 3, 1, 2)
-            with tf32_for_bf16_values():
-                acc = F.conv2d(skb, ksk) + F.conv2d(u.float().permute(0, 3, 1, 2), kup)
-            v, s = torch.relu(acc.permute(0, 2, 3, 1) + bb).to(torch.bfloat16), None
+            with span("quant.float"):
+                skb = self._deq(skc, sk_s).to(torch.bfloat16).float().permute(0, 3, 1, 2)
+                with tf32_for_bf16_values():
+                    acc = F.conv2d(skb, ksk) + F.conv2d(u.float().permute(0, 3, 1, 2), kup)
+                v, s = torch.relu(acc.permute(0, 2, 3, 1) + bb).to(torch.bfloat16), None
         if cut("dec0_conv1", v):
             return v
         spec = P["dec0_conv2"]
@@ -567,9 +581,10 @@ class QuantInference:
         if cut("dec0_conv2", v):
             return v
         kh, bh = P["head"]
-        with tf32_for_bf16_values():
-            y = ph.phase_head_matmul(self._deq(v, s).to(torch.bfloat16), kh, bh)
-        return ph.depth_to_space(y)
+        with span("quant.float"):
+            with tf32_for_bf16_values():
+                y = ph.phase_head_matmul(self._deq(v, s).to(torch.bfloat16), kh, bh)
+            return ph.depth_to_space(y)
 
     def _input_scale_key(self, name: str) -> str:
         """Calibration key of a quantized conv's float input tensor (the
@@ -610,10 +625,12 @@ class QuantInference:
             if (s is None and f"dec{d}_conv1" in qp.q4names
                     and f"enc{d}_conv2" in qp.scales):
                 s4 = qp.scales[f"enc{d}_conv2"] * _U4
-                return quantize_activations_u4s(v, self._scalar(s4)), ("u4s", s4)
+                with span("quant.convert"):
+                    return quantize_activations_u4s(v, self._scalar(s4)), ("u4s", s4)
             return v, s
 
-        v, s = x.to(self.device, torch.float32).to(torch.bfloat16), None
+        with span("quant.convert"):
+            v, s = x.to(self.device, torch.float32).to(torch.bfloat16), None
         skips = []
         for d in range(cfg.depth):
             if d == 0 and self._phase is not None:
@@ -669,18 +686,19 @@ class QuantInference:
                 # (round(q * sk_s / s_cat) is the requantize of its
                 # dequantized value) and the bf16 upconv output quantized
                 s_cat = qp.scales[name + ":cat"]
-                if sk_s is None:
-                    sk_q = self._quantize(sk, s_cat)
-                elif isinstance(sk_s, tuple):      # a u4s skip from an int4 conv
-                    sk_q = requantize_u4s_to_i8(sk, sk_s[1], s_cat)
-                elif sk_s == s_cat:
-                    sk_q = sk
-                else:
-                    ratio = self._scalar(float(np.float32(sk_s / s_cat)))
-                    sk_q = torch.round(sk.float() * ratio).clamp_(-127.0, 127.0)
-                    sk_q = sk_q.to(torch.int8)
-                sk_q = center_crop_or_pad(sk_q, u.shape[1:3])
-                cat = torch.cat([sk_q, self._quantize(u, s_cat)], dim=-1)
+                with span("quant.convert"):
+                    if sk_s is None:
+                        sk_q = self._quantize(sk, s_cat)
+                    elif isinstance(sk_s, tuple):  # a u4s skip from an int4 conv
+                        sk_q = requantize_u4s_to_i8(sk, sk_s[1], s_cat)
+                    elif sk_s == s_cat:
+                        sk_q = sk
+                    else:
+                        ratio = self._scalar(float(np.float32(sk_s / s_cat)))
+                        sk_q = torch.round(sk.float() * ratio).clamp_(-127.0, 127.0)
+                        sk_q = sk_q.to(torch.int8)
+                    sk_q = center_crop_or_pad(sk_q, u.shape[1:3])
+                    cat = torch.cat([sk_q, self._quantize(u, s_cat)], dim=-1)
                 v, s = self._conv(name, cat, s_cat)
             else:
                 sk = center_crop_or_pad(self._deq(sk, sk_s), u.shape[1:3])
@@ -692,9 +710,10 @@ class QuantInference:
                 return v
 
         k, b = self._head
-        with tf32_for_bf16_values():
-            y = self._deq(v, s).float() @ k
-        return y + b
+        with span("quant.float"):
+            with tf32_for_bf16_values():
+                y = self._deq(v, s).float() @ k
+            return y + b
 
 
 def calibration_batch(images, size: int = 188, n: int = 2) -> torch.Tensor:

@@ -27,6 +27,7 @@ from tpu_unet_torch.losses.metrics import batch_evaluation_metrics
 from tpu_unet_torch.models.unet import center_crop_or_pad
 from tpu_unet_torch.ops.pad import reflect_pad
 from tpu_unet_torch.parallel.mesh import all_gather_cat, axis_size
+from tpu_unet_torch.utils.profiling import span
 
 #: Smallest tile_out: below one pooling period (16 px) the planned stride
 #: exceeds the tile and the plan leaves gaps between tiles.
@@ -76,9 +77,10 @@ class TileInference:
             self.batch_tiles = -(-batch_tiles // n) * n
 
     def _on_device(self, a, dtype=None) -> torch.Tensor:
-        if not torch.is_tensor(a):
-            a = torch.from_numpy(np.asarray(a))
-        return a.to(self.device, dtype)
+        with span("tiles.upload"):
+            if not torch.is_tensor(a):
+                a = torch.from_numpy(np.asarray(a))
+            return a.to(self.device, dtype)
 
     def _forward(self, tile_batch: torch.Tensor) -> torch.Tensor:
         """[b, ti_h, ti_w, 1] -> [b, to_h, to_w, C] f32 logits."""
@@ -89,19 +91,20 @@ class TileInference:
         """[N, H, W] f32 -> [N*T, ti_h, ti_w, 1] gathered input tiles."""
         p = self.plan
         ti_h, ti_w = p.tile_in_hw
-        if self.normalize:
-            # guard: a constant image has ptp 0 -> NaN logits otherwise
-            lo = images.amin(dim=(1, 2), keepdim=True)
-            ptp = images.amax(dim=(1, 2), keepdim=True) - lo
-            images = (images - lo) / torch.clamp(ptp, min=1e-12)
-        padded = reflect_pad(
-            images,
-            ((p.pad, p.pad + p.canvas_h - p.image_h),
-             (p.pad, p.pad + p.canvas_w - p.image_w)),
-        )
-        tiles = torch.stack([padded[:, y:y + ti_h, x:x + ti_w]
-                             for (y, x) in p.origins], dim=1)
-        return tiles.reshape(-1, ti_h, ti_w, 1)
+        with span("tiles.cut"):
+            if self.normalize:
+                # guard: a constant image has ptp 0 -> NaN logits otherwise
+                lo = images.amin(dim=(1, 2), keepdim=True)
+                ptp = images.amax(dim=(1, 2), keepdim=True) - lo
+                images = (images - lo) / torch.clamp(ptp, min=1e-12)
+            padded = reflect_pad(
+                images,
+                ((p.pad, p.pad + p.canvas_h - p.image_h),
+                 (p.pad, p.pad + p.canvas_w - p.image_w)),
+            )
+            tiles = torch.stack([padded[:, y:y + ti_h, x:x + ti_w]
+                                 for (y, x) in p.origins], dim=1)
+            return tiles.reshape(-1, ti_h, ti_w, 1)
 
     def _chunks(self, flat: torch.Tensor):
         """Split `flat` into `batch_tiles`-sized chunks; the last is filled
@@ -115,10 +118,11 @@ class TileInference:
             c = min(self.batch_tiles, -(-m // n) * n)
         n_chunks = -(-m // c)
         pad_m = n_chunks * c - m
-        if pad_m:
-            reps = -(-pad_m // m)
-            flat = torch.cat([flat, flat.repeat(reps, 1, 1, 1)[:pad_m]], dim=0)
-        return flat.split(c)
+        with span("tiles.cut"):
+            if pad_m:
+                reps = -(-pad_m // m)
+                flat = torch.cat([flat, flat.repeat(reps, 1, 1, 1)[:pad_m]], dim=0)
+            return flat.split(c)
 
     def _sharded(self, fn, chunk: torch.Tensor) -> torch.Tensor:
         """fn(chunk); on a mesh, fn of this rank's block of the chunk, the
@@ -130,7 +134,9 @@ class TileInference:
         return all_gather_cat(fn(chunk[i * b:(i + 1) * b]), self.mesh, self.mesh_axis)
 
     def _ids(self, tile_batch: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(self._forward(tile_batch), dim=-1).int()
+        logits = self._forward(tile_batch)
+        with span("tiles.argmax"):
+            return torch.argmax(logits, dim=-1).int()
 
     @torch.inference_mode()
     def predict_logits(self, image) -> torch.Tensor:
@@ -152,10 +158,12 @@ class TileInference:
     def _forward_flat_ids(self, flat: torch.Tensor) -> torch.Tensor:
         """[M, ti_h, ti_w, 1] -> [M, to_h, to_w] int32 argmax class ids."""
         ids = [self._sharded(self._ids, c) for c in self._chunks(flat)]
-        return torch.cat(ids)[:flat.shape[0]]
+        with span("tiles.stitch"):
+            return torch.cat(ids)[:flat.shape[0]]
 
     def _stitch_ids(self, tile_ids: torch.Tensor) -> torch.Tensor:
-        """[T, to_h, to_w] int32 -> [H, W] int32 stitched class map."""
+        """[T, to_h, to_w] int32 -> [H, W] int32 stitched class map (inside
+        `predict_batch`'s 'tiles.stitch' span)."""
         p = self.plan
         canvas = torch.zeros((p.canvas_h, p.canvas_w), dtype=torch.int32,
                              device=tile_ids.device)
@@ -171,15 +179,20 @@ class TileInference:
         p = self.plan
         images = self._on_device(images, torch.float32)
         ids = self._forward_flat_ids(self._flat_tiles(images))
-        per = ids.reshape(images.shape[0], p.num_tiles, *p.tile_out_hw)
-        return torch.stack([self._stitch_ids(t) for t in per])
+        with span("tiles.stitch"):
+            per = ids.reshape(images.shape[0], p.num_tiles, *p.tile_out_hw)
+            return torch.stack([self._stitch_ids(t) for t in per])
 
     @torch.inference_mode()
     def evaluate_batch(self, images, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W] images + [N, H, W] {0,1} labels -> ([N, 2] per-image
         (iou, pixel_error), [N, H, W] int32 preds), both on the device."""
-        preds = self.predict_batch(images)
-        return batch_evaluation_metrics(preds, self._on_device(labels)), preds
+        with span("tiles.evaluate"):
+            preds = self.predict_batch(images)
+            labels = self._on_device(labels)
+            with span("tiles.metrics"):
+                metrics = batch_evaluation_metrics(preds, labels)
+            return metrics, preds
 
 
 def make_tile_batch_forward(model, tile_in: int, batch: int):

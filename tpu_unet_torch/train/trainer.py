@@ -40,6 +40,7 @@ from tpu_unet_torch.train.checkpoint import Checkpointer
 from tpu_unet_torch.train.optimizer import (PlateauState, make_optimizer, plateau_init,
                                             plateau_step, set_learning_rate)
 from tpu_unet_torch.train.progress import ProgressWriter
+from tpu_unet_torch.utils.profiling import span
 
 StepFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -54,7 +55,8 @@ def make_train_step(model: UNet, weight_fn, broadcast: str,
         with torch.no_grad():
             weights = weight_fn(gt)
         opt.zero_grad(set_to_none=True)
-        logits = center_crop_or_pad(model(inp), gt.shape[1:3])
+        with span("train.forward"):
+            logits = center_crop_or_pad(model(inp), gt.shape[1:3])
         loss = weighted_bce_with_logits(logits, gt, weights, broadcast)
         loss.backward()
         opt.step()

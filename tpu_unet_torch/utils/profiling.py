@@ -1,7 +1,11 @@
 """Tracing and timing helpers (counterpart of ``tpu_unet/utils/profiling.py``).
 
 * `trace_capture`: `torch.profiler` around the enclosed steps, yielded for
-  its event sums and, given a directory, written as a Chrome trace.
+  its event sums and, given a directory, written as a Chrome trace, the
+  program's own spans included.
+* `span`: a named range of the program (`tiles.*`, `quant.*`, `train.*`)
+  in the profiler's timeline, opened only while a profiler session that
+  records host activity runs.
 * `StepTimer`: per-step wall-clock statistics that wait for the tensors'
   CUDA device.
 * `measure_roundtrip`: the host <-> device latency of a scalar readback.
@@ -16,12 +20,71 @@ through CUDA, on the CPU with the host clock. The default device is
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+#: Whether the running profiler session records host activity, noted as each
+#: session starts (`_noting_host_activity`): torch has no call that says so.
+_records_host = True
+
+
+def _noting_host_activity(start_trace):
+    """`torch.autograd.profiler.profile._start_trace`, through which every
+    profiler session starts, wrapped to note whether the session records
+    host activity (`use_cpu`). A profile of the card alone records no
+    range, so a span there would only spend the host's time."""
+
+    @functools.wraps(start_trace)
+    def wrapped(self, *args, **kwargs):
+        global _records_host
+        _records_host = bool(getattr(self, "use_cpu", True))
+        return start_trace(self, *args, **kwargs)
+
+    return wrapped
+
+
+if hasattr(_autograd_profiler.profile, "_start_trace"):
+    _autograd_profiler.profile._start_trace = _noting_host_activity(
+        _autograd_profiler.profile._start_trace)
+
+
+class _Range:
+    """The profiler's user-annotation range that `record_function(name)`
+    opens, entered through `torch.autograd`'s binding instead of the op
+    dispatcher: 3.8 us an entry and exit on an H100's host against 9.1 us
+    through the dispatcher (torch 2.11, in a tight loop; more between a
+    model's launches). `torch._C._profiler._RecordFunctionFast` (0.7 us)
+    records a function event, not a user annotation, which the trace does
+    not tie to the device operations launched inside it."""
+
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(self.name)
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+
+
+def span(name: str):
+    """A named range in the profiler's timeline while a profiler session
+    that records host activity runs, else one shared no-op context: outside
+    such a session, a profile of the card alone included, a span costs two
+    flag checks."""
+    if _autograd_profiler._is_profiler_enabled and _records_host:
+        return _Range(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
