@@ -53,10 +53,18 @@ Phases, each printing its own lines:
      at BF16_TOL;
  10. int8 serving: the full-width bf16 U-Net (conv_impl='pallas', seed 0)
      through evaluate(quant='int8', quant_path=...): calibration, the .npz,
-     14 K3 launches per chunk, all on the sm90 loop, finite metrics, a
-     second evaluate served from the .npz with equal metrics, and every
+     14 K3 launches per chunk, all on the sm90 loop, and the four float
+     3x3 convs on K1 (3 sm90 + 1 simple per chunk; the calibration's float
+     forward adds K1's 18 once), finite metrics, a
+     second evaluate served from the .npz with equal metrics, every
      stage of QuantInference under 'pallas' (K3) equal to 'xla' (the library
-     route);
+     route; the float 3x3 convs on K1 on both sides, as the config routes
+     them); then the four float 3x3 convs on one 16-tile chunk, each on its
+     input as the forward computes it: K1 with an f32 bias off the bf16
+     grid against its plain version, a bias of 1 + 2^-10 reaching the
+     output where its bf16 rounding would not, and `QuantInference._conv_f`
+     against the library expression (the engine of the 'xla' config), at
+     BF16_TOL;
  11. int8 serving times: evaluate_batch under int8 'pallas' and 'xla' and
      float 'pallas' and 'xla', a profile by kernel group, and each int8 conv
      shape of one 16-tile chunk in turns under K3 as routed, the one-stage
@@ -140,11 +148,12 @@ Phases, each printing its own lines:
      'served_pallas' (its stored conv_impl 'pallas', run with
      --no-phase-level0): plain, --quant int8 and int8-phase, with K1 17 sm90
      + 1 simple, K3 14 and 13, and the k x k kernel 2 per chunk under
-     'pallas' (int8 calibration's float forward adds K1's 18 once a run),
-     none under 'xla'. Each run's IoU and pixel error lie in [0, 1], its
-     predictions read back through the port's TIFF codec as 0/255 maps that
-     hold both classes, and the 'pallas' maps agree with the 'xla' ones on
-     RESEARCH_AGREE of the pixels. K1, K3 and the k x k kernel are held
+     'pallas', and the int8 tiers' float 3x3 convs on K1 (3 sm90 + 1
+     simple, and 1 sm90, per chunk; int8 calibration's float forward adds
+     K1's 18 once a run), none under 'xla'. Each run's IoU and pixel error
+     lie in [0, 1], its predictions read back through the port's TIFF
+     codec as 0/255 maps that hold both classes, and the 'pallas' maps
+     agree with the 'xla' ones on RESEARCH_AGREE of the pixels. K1, K3 and the k x k kernel are held
      against their plain versions at the shapes these runs give them (one
      chunk of 10 tiles of 636^2; the bars of phases 2, 9 and 15), and the
      served weights' logits on that chunk 'pallas' against 'xla' (bf16 at
@@ -157,9 +166,11 @@ Phases, each printing its own lines:
      and 'int4-phase', quant_path=...) under 'pallas' (calibrated and saved,
      then served from the .npz) and 'xla': K3 1 (int4, on the sm90 loop,
      the int8 dec0_conv1) and the k x k kernel 2 (int4-phase) per chunk
-     under 'pallas', none under 'xla', K1 17 + 1 in the calibrating run
-     only; equal metrics across runs; every stage of QuantInference
-     'pallas' vs 'xla' bit for bit; the other tier's .npz refused both ways;
+     under 'pallas', none under 'xla', K1 17 + 1 in the calibrating run,
+     and in every run K1 on the float 3x3 convs (3 sm90 + 1 simple per
+     chunk, int4-phase 1 sm90: the .npz holds the calibrating model's
+     conv_impl 'pallas'); equal metrics across runs; every stage of
+     QuantInference 'pallas' vs 'xla' bit for bit; the other tier's .npz refused both ways;
      the int4 ops (shifted and signed accumulate, u4s epilogue, four
      quantizers) on the card against CPU copies bit for bit at the 13 int4
      conv shapes of a 572^2 tile (batch 2); the tier's quality bar
@@ -1099,12 +1110,87 @@ def phase9_k3_vs_plain(cfg):
     return 0.0, bf16_err
 
 
+# K1 launches (all, sm90) per chunk of the production int8 tier at full
+# width under conv_impl 'pallas': its four float 3x3 convs (enc0_conv1 on
+# the simple kernel); and of the int8-phase tier, whose level 0 is packed:
+# enc1_conv1 alone.
+INT8_FLOAT_K1 = (4, 3)
+INT8_PHASE_FLOAT_K1 = (1, 1)
+# the production int8 tier's float 3x3 convs and the stage each reads
+INT8_FLOAT_CONVS = {"enc0_conv1": None, "enc0_conv2": "enc0_conv1", "enc1_conv1": "pool0",
+                    "dec0_conv2": "dec0_conv1"}
+
+
+@torch.inference_mode()
+def _int8_float_convs_on_k1(qp, qi, chunk):
+    """K1's f32-bias instances at the shapes the int8 tier gives them, each
+    float 3x3 conv on its input of `chunk` as `qi` (an engine on K1)
+    computes it: K1 with an f32 bias off the bf16 grid against its plain
+    version and `qi._conv_f` against the library expression (the engine of
+    the 'xla' config), both at BF16_TOL of the output's scale, and a bias
+    of 1 + 2^-10 that reaches the output where its bf16 rounding would not:
+    relu(2^-8 + b) rounds to 1 + 2^-7, relu(2^-8 + bf16(b)) to 1. Returns
+    ({'k1_vs_plain', 'conv_f_vs_library'}: max |err|, the routes taken)."""
+    from tpu_unet_torch.infer.quant import QuantInference
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    lib = QuantInference(dataclasses.replace(qp, cfg=dataclasses.replace(qp.cfg,
+                                                                          conv_impl="xla")),
+                         impl="pallas", device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    errs, routes = {"k1_vs_plain": 0.0, "conv_f_vs_library": 0.0}, {}
+    for name, prev in INT8_FLOAT_CONVS.items():
+        v = chunk if prev is None else qi.apply(chunk, stop_after=prev)
+        v = (qi._deq(v, qp.scales[prev]) if v.dtype == torch.int8
+             else v.to(torch.bfloat16)).contiguous()
+        w = qi._fconv_hwio[name]
+        cin, cout = w.shape[2:]
+        b = (0.05 * torch.randn(cout, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        b = b.float() * (1 + 2.0 ** -10)              # off the bf16 grid
+        if torch.equal(b.to(torch.bfloat16).float(), b):
+            raise AssertionError(f"{name}: the f32 bias is bf16-exact")
+        sm90 = conv3x3_bias_relu.sm90_launches
+        got = conv3x3_bias_relu(v, w, b)
+        routes[name] = "sm90" if conv3x3_bias_relu.sm90_launches > sm90 else "simple"
+        if routes[name] != _route_of(cin):
+            raise AssertionError(f"{name}: K1 took the {routes[name]} route")
+        ref = conv3x3_bias_relu_plain(v, w, b)
+        pairs = {"k1_vs_plain": (got, ref),
+                 "conv_f_vs_library": (qi._conv_f(name, v), lib._conv_f(name, v))}
+        line = []
+        for key, (y, want) in pairs.items():
+            if y.dtype != torch.bfloat16 or y.shape != want.shape:
+                raise AssertionError(f"{name} {key}: {y.dtype} {tuple(y.shape)}, want "
+                                     f"{tuple(want.shape)}")
+            err = (y.float() - want.float()).abs().max().item()
+            bar = BF16_TOL * max(want.float().abs().max().item(), 1.0)
+            if not err <= bar:
+                raise AssertionError(f"{name} {key}: max |err| {err} > {bar}")
+            errs[key] = max(errs[key], err)
+            line.append(f"{key} max|err| {err:.3g} (bound {bar:.3g})")
+        del got, ref, pairs
+        ones = torch.zeros_like(v)
+        ones[..., 0] = 1.0
+        tap = torch.zeros_like(w)
+        tap[1, 1, 0] = 2.0 ** -8
+        odd = torch.full_like(b, 1 + 2.0 ** -10)
+        if not (bool((conv3x3_bias_relu(ones, tap, odd) == 1 + 2.0 ** -7).all())
+                and bool((conv3x3_bias_relu(ones, tap, odd.to(torch.bfloat16)) == 1.0).all())):
+            raise AssertionError(f"{name}: K1 at x{list(v.shape)} does not add the f32 bias "
+                                 f"before its one rounding")
+        log(f"phase 10: float conv {name:11s} x{list(v.shape)} -> {cout} ({routes[name]}), "
+            f"f32 bias: " + ", ".join(line) + "; the bias 1 + 2^-10 reaches the output")
+        del v, ones
+    return errs, routes
+
+
 def phase10_serve_int8(cfg):
     from tpu_unet_torch.data import synthetic_dataset
     from tpu_unet_torch.infer import TileInference, evaluate
     from tpu_unet_torch.infer.quant import (QuantInference, default_quant_names,
                                             load_quant_params)
     from tpu_unet_torch.models import UNet
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
     from tpu_unet_torch.ops.conv_tiles import conv3x3_fused
 
     model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(DEVICE)
@@ -1118,17 +1204,24 @@ def phase10_serve_int8(cfg):
     results, launches = [], []
     for run in ("calibrated and saved", "served from the .npz"):
         conv3x3_fused.launches = conv3x3_fused.sm90_launches = 0
+        conv3x3_bias_relu.launches = conv3x3_bias_relu.sm90_launches = 0
         t0 = time.perf_counter()
         results.append(evaluate(model, data, tile_out=TILE_OUT, verbose=False,
                                 quant="int8", quant_path=qpath))
         torch.cuda.synchronize()
         launches.append({"sm90": conv3x3_fused.sm90_launches,
                          "simple": conv3x3_fused.launches - conv3x3_fused.sm90_launches})
+        k1 = (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches)
         log(f"phase 10: evaluate(quant='int8') {run} in {time.perf_counter() - t0:.2f} s: "
-            f"K3 launches by route {launches[-1]} for {n_tiles} tiles in {n_chunks} chunk(s); "
-            f"{json.dumps(results[-1])}")
+            f"K3 launches by route {launches[-1]}, K1 (all, sm90) {k1} for {n_tiles} tiles "
+            f"in {n_chunks} chunk(s); {json.dumps(results[-1])}")
         if launches[-1] != {"sm90": 14 * n_chunks, "simple": 0}:
             raise AssertionError(f"K3 launches {launches[-1]}, want 14 x {n_chunks} on sm90")
+        # the float 3x3 convs, and once the calibration's float forward
+        calib = (18, 17) if run.startswith("calibrated") else (0, 0)
+        want = tuple(n * n_chunks + c for n, c in zip(INT8_FLOAT_K1, calib))
+        if k1 != want:
+            raise AssertionError(f"K1 launches {k1}, want {want}")
         if not os.path.exists(qpath):
             raise AssertionError(f"{qpath} was not written")
     first, second = ({k: v for k, v in r.items() if k != "seconds"} for r in results)
@@ -1155,6 +1248,10 @@ def phase10_serve_int8(cfg):
     log(f"phase 10: QuantInference 'pallas' (K3) and 'xla' (library) equal at all "
         f"{len(QUANT_STAGES)} stages ({n_int8} int8) and the logits, on image 0's "
         f"{tiles.shape[0]} tiles")
+    chunk = engine._flat_tiles(engine._on_device(data.images, torch.float32))
+    float_errs, float_routes = _int8_float_convs_on_k1(qp, qis["pallas"],
+                                                       chunk[:engine.batch_tiles])
+    del chunk
 
     float_logits = engine.predict_logits(data.images[0])
     int8_logits = TileInference(model, IMAGE, IMAGE, tile_out=TILE_OUT,
@@ -1163,7 +1260,9 @@ def phase10_serve_int8(cfg):
     log(f"phase 10: image 0 class maps, int8 vs bf16: equal on {agree:.5f} of the "
         f"pixels (random weights: reported, not held to a bound)")
     log("phase 10: ok")
-    return model, data, qp, launches[0]
+    # K1's launches serving from the .npz: the float 3x3 convs alone
+    return model, data, qp, launches[0], {"launches": k1[0], "routes": float_routes,
+                                          **float_errs}
 
 
 # The int8 kernels' timing turns (phases 11, 17): the kernel as routed, the
@@ -1700,7 +1799,6 @@ def phase14_time_research(model, data, qp):
     """tiles/s of the two formulations and of production int8 'pallas', in
     turns; each research kernel's ms per chunk against its plain version and
     the library route it replaces; returns (tiles/s, {name: times})."""
-    from tpu_unet_torch.models.unet import _max_pool2
     from tpu_unet_torch.ops.conv_tiles import quantize_activations
     from tpu_unet_torch.ops.fused_level0 import (_enc0_chain_route_forward, concat_quantize,
                                                  concat_quantize_plain, enc0_chain,
@@ -1709,6 +1807,7 @@ def phase14_time_research(model, data, qp):
                                                pair_batch_channels, pair_batch_channels_plain,
                                                unpair_batch_channels,
                                                unpair_batch_channels_plain)
+    from tpu_unet_torch.probes.mosaic_probe import _library_level0
 
     images = torch.from_numpy(data.images).to(DEVICE)
     lab = torch.from_numpy((data.targets > 127).astype(np.uint8)).to(DEVICE)
@@ -1744,7 +1843,6 @@ def phase14_time_research(model, data, qp):
             else ("K6 interleave_copy",)))
     del engines
 
-    prod_qi = _research_engine(model, qp, {})[0]
     s_cat = qp.scales["dec0_conv1:cat"]
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     out = {}
@@ -1754,18 +1852,14 @@ def phase14_time_research(model, data, qp):
         w = [t.to(DEVICE, dt) for n in ("enc0_conv1", "enc0_conv2")
              for t, dt in zip(qp.fconv[n], (torch.bfloat16, torch.float32))]
 
-        def level0_library():
-            """The production level 0: two float convs (cuDNN, TF32 on bf16
-            values), the int8 capture of the skip and the pool."""
-            h2 = prod_qi._conv_f("enc0_conv2", prod_qi._conv_f("enc0_conv1", x))
-            return prod_qi._quantize(h2, s_cat), _max_pool2(h2)
-
         # K4 as serving routes it (sm90), its first kernel (the forced simple
-        # route) and the library level 0 in turns; then the plain version
+        # route) and level 0 through the library (two cuDNN convs in TF32 on
+        # bf16 values, the int8 capture of the skip and the pool) in turns;
+        # then the plain version
         t = _in_turns({"kernel": lambda: enc0_chain(x, *w, skip_scale=s_cat),
                        "simple": lambda: _enc0_chain_route_forward(x, *w, "simple",
                                                                    skip_scale=s_cat),
-                       "library": level0_library})
+                       "library": lambda: _library_level0(x, *w, s_cat)})
         t["plain"] = time_ms(lambda: enc0_chain_plain(x, *w, skip_scale=s_cat), DEVICE, 3)
         t["bound"], t["bound_by"] = enc0_bound(BATCH_TILES, TILE_IN, TILE_IN,
                                                w[0].shape[-1], 1)
@@ -2512,8 +2606,9 @@ CLI_QUANT = (None, "int8", "int8-phase")
 # {kernel: (all launches, of them on route sm90)}
 CLI_PALLAS_LAUNCHES = {
     None: {"conv3x3_bias_relu": (18, 17), "conv3x3_fused": (0, 0), "conv_kxk_fused": (0, 0)},
-    "int8": {"conv3x3_bias_relu": (0, 0), "conv3x3_fused": (14, 14), "conv_kxk_fused": (0, 0)},
-    "int8-phase": {"conv3x3_bias_relu": (0, 0), "conv3x3_fused": (13, 13),
+    "int8": {"conv3x3_bias_relu": INT8_FLOAT_K1, "conv3x3_fused": (14, 14),
+             "conv_kxk_fused": (0, 0)},
+    "int8-phase": {"conv3x3_bias_relu": INT8_PHASE_FLOAT_K1, "conv3x3_fused": (13, 13),
                    "conv_kxk_fused": (2, 2)},
 }
 # ... and once a run under --quant: int8 calibration's one float forward
@@ -2843,11 +2938,14 @@ def phase20_cli(smi, cfg, served_state):
 
 # The int4 tiers (phase 21): launches per chunk of each path, under
 # 'pallas' ({kernel: (all, of them on route sm90)}); 'xla' launches none. The
-# int4 convs take the int8 library route under both impls.
+# int4 convs take the int8 library route under both impls. The float 3x3
+# convs take K1 in every run, 'xla' too: each serves the .npz the 'pallas'
+# model calibrated, whose config routes them there.
 INT4_LAUNCHES = {
     "int4": {"conv3x3_fused": (1, 1), "conv_kxk_fused": (0, 0)},
     "int4-phase": {"conv3x3_fused": (0, 0), "conv_kxk_fused": (2, 2)},
 }
+INT4_FLOAT_K1 = {"int4": INT8_FLOAT_K1, "int4-phase": INT8_PHASE_FLOAT_K1}
 # The tier's own quality bar (tests/test_quant.py's test_int4_iou_vs_bf16):
 # foreground IoU against the ground truth within 5% of the bf16 model's, and
 # foreground IoU of the int4 maps against the bf16 maps above 0.90.
@@ -2974,8 +3072,10 @@ def phase21_int4(cfg, served_state, data, qp8):
         if impl == "pallas":
             want.update({name: (a * n_chunks, b * n_chunks)
                          for name, (a, b) in INT4_LAUNCHES[tier].items()})
+        want["conv3x3_bias_relu"] = tuple(n * n_chunks for n in INT4_FLOAT_K1[tier])
         if key.endswith("calibrated"):           # the calibration's float forward
-            want["conv3x3_bias_relu"] = (18, 17)
+            want["conv3x3_bias_relu"] = tuple(n + c for n, c in
+                                              zip(want["conv3x3_bias_relu"], (18, 17)))
         if launches[key] != want:
             failed.append(f"{key}: launches {launches[key]}, want {want}")
     metrics = {k: {m: v for m, v in r.items() if m != "seconds"} for k, r in runs.items()}
@@ -3083,11 +3183,15 @@ def phase21_int4(cfg, served_state, data, qp8):
     if failed:
         raise AssertionError(f"phase 21 failed: {failed}")
     log(f"phase 21: ok in {time.perf_counter() - t_phase:.1f} s")
-    calib = launches["int4 'pallas', calibrated"]
+    # K1 in the calibrating run: the float 3x3 convs, and the calibration's
+    # float forward apart
+    served = launches["int4 'pallas'"]["conv3x3_bias_relu"]
+    calib = tuple(c - n for c, n in zip(launches["int4 'pallas', calibrated"]
+                                        ["conv3x3_bias_relu"], served))
     return {"tiles_per_s": tiles_s, "quality": quality, "metrics": metrics,
             "launches": {"serve_int4": launches["int4 'pallas'"]["conv3x3_fused"],
                          "serve_int4_phase": launches["int4-phase 'pallas'"]["conv_kxk_fused"],
-                         "serve_int4_calibration": calib["conv3x3_bias_relu"]},
+                         "serve_int4_float": served, "serve_int4_calibration": calib},
             "cpu_compared_calls": n_ops}
 
 
@@ -3230,9 +3334,11 @@ MESH_TIERS = ("bf16", "int8", "int8-phase", "int4-phase")
 # launches per rank per forward (per chunk on the tiles path): {kernel: (all, sm90)}
 MESH_FORWARD_LAUNCHES = {"conv3x3_bias_relu": (18, 17)}
 MESH_TIER_LAUNCHES = {"bf16": MESH_FORWARD_LAUNCHES,
-                      "int8": {"conv3x3_fused": (14, 14)},
-                      "int8-phase": {"conv3x3_fused": (13, 13), "conv_kxk_fused": (2, 2)},
-                      "int4-phase": {"conv_kxk_fused": (2, 2)}}
+                      "int8": {"conv3x3_fused": (14, 14), "conv3x3_bias_relu": INT8_FLOAT_K1},
+                      "int8-phase": {"conv3x3_fused": (13, 13), "conv_kxk_fused": (2, 2),
+                                     "conv3x3_bias_relu": INT8_PHASE_FLOAT_K1},
+                      "int4-phase": {"conv_kxk_fused": (2, 2),
+                                     "conv3x3_bias_relu": INT8_PHASE_FLOAT_K1}}
 MESH_KERNELS = ("conv3x3_bias_relu", "edt_column_pass", "conv3x3_fused", "conv_kxk_fused")
 
 
@@ -3910,7 +4016,7 @@ def main() -> None:
     step_err = phase7_step_agreement(cfg)
     step_ms, edt_ms = phase8_time(cfg)
     k3_err, k3_bf16_err = phase9_k3_vs_plain(cfg)
-    model, data, qp, int8_launches = phase10_serve_int8(cfg)
+    model, data, qp, int8_launches, int8_k1 = phase10_serve_int8(cfg)
     k3_total, int8_tiles_s = phase11_time_int8(cfg, model, data, qp)
     del model
     research_errs = phase12_research_kernels()
@@ -3952,6 +4058,8 @@ def main() -> None:
                              "train": launches["conv3x3_bias_relu"],
                              "cli_test_pallas": cli_launches["TESTING pallas bf16"][
                                  "conv3x3_bias_relu"],
+                             "serve_int8_float": int8_k1["launches"],
+                             "serve_int4_float": int4["launches"]["serve_int4_float"][0],
                              "serve_int4_calibration": int4["launches"][
                                  "serve_int4_calibration"][0],
                              **_mesh_paths(mesh, "conv3x3_bias_relu")},
@@ -3968,6 +4076,8 @@ def main() -> None:
         "sources": ["tpu_unet_torch/csrc/conv3x3_bias_relu.cu",
                     "tpu_unet_torch/csrc/conv3x3_sm90.cuh"],
         "grad_max_rel_err": grad_err,
+        "f32_bias_max_abs_err": {"int8_float_convs": int8_k1["k1_vs_plain"],
+                                 "int8_conv_f_vs_library": int8_k1["conv_f_vs_library"]},
         "cli_max_abs_err": cli_errs["conv3x3_bias_relu"],
         "evaluate_tiles_per_s": tiles_s,
     }, {

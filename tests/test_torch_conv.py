@@ -18,9 +18,9 @@ import jax.numpy as jnp
 from tpu_unet.ops.conv_pallas import conv3x3_bias_relu as jax_conv
 from tpu_unet_torch.config import ModelConfig
 from tpu_unet_torch.ops import _build
-from tpu_unet_torch.ops.conv_pallas import (SM90_FLAT_BLOCKS, conv3x3_bias_relu,
-                                            conv3x3_bias_relu_plain, conv3x3_route,
-                                            sm90_plan)
+from tpu_unet_torch.ops.conv_pallas import (SM90_FLAT_BLOCKS, _check_kernel_args,
+                                            conv3x3_bias_relu, conv3x3_bias_relu_plain,
+                                            conv3x3_route, sm90_plan)
 
 # The shapes of tests/test_conv_pallas.py, plus Cin = 1 (the U-Net's first
 # conv, K = 9) and a ragged width.
@@ -80,6 +80,45 @@ def test_plain_out_dtype_and_launch_count():
     np.testing.assert_array_equal(
         y.float().numpy(),
         conv3x3_bias_relu_plain(x, w, b).to(torch.bfloat16).float().numpy())
+
+
+BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("dtypes,ok", [
+    ((BF, BF, BF), True), ((F32, F32, F32), True),
+    ((BF, BF, F32), True),                # the int8 tier's float layers
+    ((F32, F32, BF), False), ((BF, F32, F32), False), ((F32, BF, F32), False),
+    ((BF, BF, torch.float16), False), ((BF, BF, I8), False), ((I8, I8, I8), False),
+    ((I8, I8, F32), False),
+])
+def test_kernel_takes_an_f32_bias_beside_bf16_only(dtypes, ok):
+    """The kernel's argument check: x and w of one dtype, float32 or
+    bfloat16, and b in x's dtype or, beside bfloat16, float32."""
+    xd, wd, bd = dtypes
+    args = (torch.zeros((1, 5, 5, 8), dtype=xd), torch.zeros((3, 3, 8, 8), dtype=wd),
+            torch.zeros((8,), dtype=bd))
+    if ok:
+        _check_kernel_args(*args, None)
+        with pytest.raises(TypeError, match="writes x's dtype"):
+            _check_kernel_args(*args, torch.float16)
+    else:
+        with pytest.raises(TypeError):
+            _check_kernel_args(*args, None)
+
+
+def test_f32_bias_is_added_before_the_one_rounding():
+    """relu(acc + b) rounds to bf16 once: with acc = 2^-8 and b = 1 + 2^-10,
+    an f32 b gives 1 + 2^-7, a bf16-rounded b (1.0) the tie 1 + 2^-8, which
+    rounds to 1.0."""
+    x = torch.zeros((1, 4, 5, 8), dtype=BF)
+    x[..., 0] = 1.0
+    w = torch.zeros((3, 3, 8, 16), dtype=BF)
+    w[1, 1, 0] = 2.0 ** -8
+    b = torch.full((16,), 1 + 2.0 ** -10)
+    y = conv3x3_bias_relu(x, w, b)
+    assert y.dtype == BF and bool((y == 1 + 2.0 ** -7).all())
+    assert bool((conv3x3_bias_relu(x, w, b.to(BF)) == 1.0).all())
 
 
 @pytest.mark.parametrize("xs,ws,bs", [

@@ -242,6 +242,47 @@ def test_model_routes_17_convs_to_the_sm90_loop(cuda):
     assert err <= 5e-2 * max(ref.float().abs().max().item(), 1.0), err
 
 
+# K1 with an f32 bias beside bf16 x and w (the int8 tier's float layers), on
+# each route: the strip loop (64 -> 64), the flat 256 x 128 loop (64 -> 128)
+# and the simple kernel (Cin 1)
+F32_BIAS_CASES = [((2, 10, 100, 64), 64, "sm90"), ((2, 10, 100, 64), 128, "sm90"),
+                  ((2, 15, 33, 1), 64, "simple")]
+
+
+@pytest.mark.parametrize("shape,cout,route", F32_BIAS_CASES)
+def test_kernel_takes_an_f32_bias(cuda, shape, cout, route):
+    """bf16 x and w with an f32 bias on the route `conv3x3_route` picks (and
+    the simple kernel forced at the sm90 shapes) within 2e-2 of the output's
+    scale of the plain version; a bias bf16 cannot hold (1 + 2^-10) reaches
+    the output where its bf16 rounding would not: relu(2^-8 + b) rounds to
+    1 + 2^-7, relu(2^-8 + bf16(b)) to 1."""
+    x, w, b = _inputs(shape, cout, torch.bfloat16, cuda, seed=cout)
+    b = b.float() + 1e-3                  # off the bf16 grid
+    assert sm90_plan(shape[3], cout).kind == ("strip" if cout <= 64 else "flat")
+    with torch.no_grad():
+        before = (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches)
+        got = conv3x3_bias_relu(x, w, b)
+        assert (conv3x3_bias_relu.launches - before[0],
+                conv3x3_bias_relu.sm90_launches - before[1]) == (1, int(route == "sm90"))
+        ref = conv3x3_bias_relu_plain(x, w, b)
+        outs = [got] + ([_conv3x3_route_forward(x, w, b, "simple")] if route == "sm90" else [])
+    torch.cuda.synchronize()
+    for y in outs:
+        assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+        _bf16_close(y, ref)
+    ones = torch.zeros_like(x)
+    ones[..., 0] = 1.0
+    tap = torch.zeros_like(w)
+    tap[1, 1, 0] = 2.0 ** -8
+    odd = torch.full_like(b, 1 + 2.0 ** -10)
+    with torch.no_grad():
+        for fn in [conv3x3_bias_relu] + ([lambda *a: _conv3x3_route_forward(*a, "simple")]
+                                         if route == "sm90" else []):
+            assert bool((fn(ones, tap, odd) == 1 + 2.0 ** -7).all())
+            assert bool((fn(ones, tap, odd.to(torch.bfloat16)) == 1.0).all())
+            assert bool((conv3x3_bias_relu_plain(ones, tap, odd) == 1 + 2.0 ** -7).all())
+
+
 def test_route_forward_refuses_what_its_route_does_not_take(cuda):
     x, w, b = _inputs((1, 6, 7, 12), 16, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="sm90"):
@@ -484,6 +525,61 @@ def test_quant_inference_kernel_matches_library_route(cuda):
                   "dec0_conv1"):
         got = engines["pallas"].apply(x, stop_after=stage)
         assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage
+
+
+# the int8 engine's float 3x3 convs at base width 8 (min_channels 16), and
+# the stage each reads
+ENGINE_FLOAT_CONVS = {"enc0_conv1": None, "enc0_conv2": "enc0_conv1",
+                      "enc1_conv1": "pool0", "dec0_conv2": "dec0_conv1"}
+ENGINE_STAGES = ("enc0_conv1", "enc0_conv2", "pool0", "enc1_conv1", "enc1_conv2", "pool2",
+                 "bottleneck_conv2", "up1", "dec1_conv1", "dec0_conv1", "dec0_conv2", None)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_quant_engine_runs_its_float_convs_on_k1(cuda, int4):
+    """A narrow int8 (and int4) engine of a config that routes its 3x3 convs
+    to K1 (conv_impl='pallas'): its four float 3x3 convs take K1 with the
+    f32 bias, 3 on the sm90 loop, a forward; each within 2e-2 of its scale
+    of the library expression on the same input; 'pallas' and 'xla' equal
+    at every stage; the engine of the 'xla' config launches no K1."""
+    from tpu_unet_torch.infer.quant import (QuantInference, add_concat_scales,
+                                            calibrate, default_int4_names,
+                                            default_quant_names, prepare_quant_params)
+
+    cfg = ModelConfig(base_width=8, compute_dtype="bfloat16", conv_impl="pallas")
+    model = UNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand((2, 188, 188, 1), generator=torch.Generator().manual_seed(1)).to(cuda)
+    scales = add_concat_scales(cfg, calibrate(model, x))
+    qp = prepare_quant_params(cfg, model, scales, default_quant_names(cfg, 16),
+                              q4names=default_int4_names(cfg, 16) if int4 else None)
+    xla_qp = dataclasses.replace(qp, cfg=dataclasses.replace(cfg, conv_impl="xla"))
+    engines = {impl: QuantInference(qp, impl=impl, device=cuda) for impl in ("pallas", "xla")}
+    library = QuantInference(xla_qp, impl="pallas", device=cuda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # the upconvs run twice
+    try:
+        for impl, qi in engines.items():
+            before = (conv3x3_bias_relu.launches, conv3x3_bias_relu.sm90_launches)
+            qi.apply(x)
+            assert (conv3x3_bias_relu.launches - before[0],
+                    conv3x3_bias_relu.sm90_launches - before[1]) == (4, 3), impl
+        before = conv3x3_bias_relu.launches
+        library.apply(x)
+        assert conv3x3_bias_relu.launches == before
+        assert "_fconv_hwio" not in vars(library)    # K1's kernels never built
+        for stage in ENGINE_STAGES:
+            got = engines["pallas"].apply(x, stop_after=stage)
+            assert torch.equal(got, engines["xla"].apply(x, stop_after=stage)), stage
+        k1 = engines["pallas"]
+        for name, prev in ENGINE_FLOAT_CONVS.items():
+            v = x.to(torch.bfloat16) if prev is None else k1.apply(x, stop_after=prev)
+            if v.dtype == torch.int8:
+                v = k1._deq(v, qp.scales[prev])
+            got, ref = k1._conv_f(name, v), library._conv_f(name, v)
+            assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+            _bf16_close(got, ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 # --- K4, K5, K6a-c: the research int8 forward's kernels -----------------------

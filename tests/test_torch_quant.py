@@ -465,3 +465,75 @@ def test_npz_crosses_both_ways(nets, qparams, jax_stages, tmp_path):
     np.testing.assert_array_equal(t4.q4conv["dec1_conv1"][0].numpy(),
                                   np.asarray(j4.q4conv["dec1_conv1"][0]))
     assert tq.QuantInference(t4, device="cpu").apply(torch.from_numpy(x)).isfinite().all()
+
+
+# the float 3x3 convs at base width 8 with MIN_CHANNELS 16, and their input
+# stages (the int8 dec0_conv1 dequantized at its scale)
+FLOAT_CONVS = {"enc0_conv1": None, "enc0_conv2": "enc0_conv1", "enc1_conv1": "pool0",
+               "dec0_conv2": "dec0_conv1"}
+
+
+def test_cpu_keeps_the_library_float_convs_under_pallas(nets, qparams, jax_stages):
+    """A config that routes its 3x3 convs to K1 (conv_impl='pallas') serves
+    on the CPU through the library expression, bit for bit the engine of
+    the 'xla' config (the one held to JAX), under both impls."""
+    tqp = qparams[1]
+    pallas = dataclasses.replace(tqp, cfg=dataclasses.replace(tqp.cfg, conv_impl="pallas"))
+    x = torch.from_numpy(nets["x"])
+    want = tq.QuantInference(tqp, device="cpu").apply(x)
+    for impl in ("xla", "pallas"):
+        qi = tq.QuantInference(pallas, impl=impl, device="cpu")
+        assert not qi._k1
+        assert torch.equal(qi.apply(x), want), impl
+        assert "_fconv_hwio" not in vars(qi)        # K1's kernels never built
+    np.testing.assert_allclose(want.numpy(), jax_stages["paper"]["logits"], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_k1_route_of_the_float_convs_rehearsed(nets, qparams, monkeypatch):
+    """The card's K1 route of the float 3x3 convs, taken on the CPU (where
+    K1 runs its plain version): one call a float conv per forward with the
+    bf16 HWIO kernel and the f32 bias, and each output within 2e-2 of its
+    scale of the library expression's on the same input; the paired and
+    the phase-packed float convs keep the library expression."""
+    tqp = qparams[1]
+    x = torch.from_numpy(nets["x"])
+    lib = tq.QuantInference(tqp, device="cpu")
+    k1 = tq.QuantInference(tqp, device="cpu")
+    k1._k1 = True
+    calls = []
+
+    def counted(v, w, b):
+        calls.append((v.dtype, v.is_contiguous(), w.dtype, tuple(w.shape), b.dtype))
+        return conv3x3_k1(v, w, b)
+    conv3x3_k1 = tq.conv3x3_k1
+    monkeypatch.setattr(tq, "conv3x3_k1", counted)
+    logits = k1.apply(x)
+    assert logits.shape == lib.apply(x).shape and torch.isfinite(logits).all()
+    cin = {"enc0_conv1": 1, "enc0_conv2": 8, "enc1_conv1": 8, "dec0_conv2": 8}
+    assert [c[3] for c in calls] == [(3, 3, cin[n], tqp.cfg.widths[int(n[3])])
+                                     for n in ("enc0_conv1", "enc0_conv2", "enc1_conv1",
+                                               "dec0_conv2")]
+    assert all(c[:3] == (torch.bfloat16, True, torch.bfloat16) and c[4] == torch.float32
+               for c in calls)
+    for name in cin:                                # K1's kernels: the HWIO ones in bf16
+        assert torch.equal(k1._fconv_hwio[name], tqp.fconv[name][0].to(torch.bfloat16))
+    seen, _ = one_forward(lib, x)
+    for name, prev in FLOAT_CONVS.items():
+        v = x.to(torch.bfloat16) if prev is None else seen[prev]
+        if v.dtype == torch.int8:
+            v = lib._deq(v, tqp.scales[prev])
+        got, ref = k1._conv_f(name, v), lib._conv_f(name, v)
+        assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1.0), name
+    calls.clear()
+    k1.apply(x, stop_after="pool0")
+    n = len(calls)
+    paired = k1._conv_f("enc0_conv2", torch.cat([seen["enc0_conv1"]] * 2, -1), paired=True)
+    assert len(calls) == n and paired.shape[-1] == 2 * tqp.cfg.widths[0]
+    ph = tq.QuantInference(tqp, phase_level0="bf16", device="cpu")
+    ph._k1 = True
+    calls.clear()
+    ph.apply(x)
+    assert [c[3] for c in calls] == [(3, 3, 8, 16)]          # enc1_conv1 only

@@ -6,7 +6,9 @@
 // in f32, with bias and ReLU applied before the single store of each output.
 //
 //   x [B, H, W, Cin], w [3, 3, Cin, Cout] (HWIO), b [Cout]
-//   -> y [B, H-2, W-2, Cout], all of one dtype (bf16 or f32), contiguous.
+//   -> y [B, H-2, W-2, Cout], all of one dtype (bf16 or f32), contiguous;
+//   beside a bf16 x, b may be f32 (the int8 tier's float layers: f32 sums
+//   of bf16 values, an f32 bias, one bf16 rounding).
 //
 // Formulation: an implicit GEMM, not the Pallas grid carried over.
 //   M = B*Ho*Wo output pixels, N = Cout, K = 9*Cin with k = (dy*3 + dx)*Cin + c.
@@ -22,7 +24,8 @@
 // Two routes, chosen by shape in ops/conv_pallas.py (`conv3x3_route`):
 //   * "sm90": bf16 with Cin and Cout multiples of 8 and a 16-byte aligned
 //     x, which is 17 of the U-Net's 18 convs: the loops of
-//     conv3x3_sm90.cuh with the bias + ReLU -> bf16 epilogue, fed the
+//     conv3x3_sm90.cuh with the bias + ReLU -> bf16 epilogue (a bf16 or an
+//     f32 bias, one instance each), fed the
 //     weights K-major ([Cout, 9, Cin], a fresh aligned copy the wrapper
 //     lays out per call);
 //   * "simple": the kernels below, for the rest: enc0_conv1 (Cin = 1,
@@ -171,9 +174,10 @@ __device__ void load_b(const T* __restrict__ w, const Geom& g, int k0, int n0, T
   }
 }
 
-// relu(acc + bias) -> y. `v < 0 ? 0 : v` keeps a NaN as torch.relu does.
-template <typename T>
-__device__ __forceinline__ void store_one(T* __restrict__ y, const T* __restrict__ bias,
+// relu(acc + bias) -> y, the bias in y's type or f32. `v < 0 ? 0 : v` keeps a
+// NaN as torch.relu does.
+template <typename T, typename BT>
+__device__ __forceinline__ void store_one(T* __restrict__ y, const BT* __restrict__ bias,
                                           const Geom& g, long long m, int n, float acc) {
   if (m < g.M && n < g.Cout) {
     float v = acc + to_float(bias[n]);
@@ -192,11 +196,11 @@ constexpr int B16_BYTES = BK16 * LDB16 * 2;
 constexpr int C16_BYTES = BM * LDC16 * 4;
 constexpr int SMEM16 = (A16_BYTES + B16_BYTES > C16_BYTES) ? A16_BYTES + B16_BYTES : C16_BYTES;
 
-template <bool VEC>
+template <bool VEC, typename BT>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_bias_relu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                               const __nv_bfloat16* __restrict__ w,
-                              const __nv_bfloat16* __restrict__ bias,
+                              const BT* __restrict__ bias,
                               __nv_bfloat16* __restrict__ y, Geom g) {
   using namespace nvcuda;
   // The f32 epilogue tile reuses the operand tiles' memory after the K loop.
@@ -326,24 +330,47 @@ dim3 grid_for(const Geom& g) {
   return dim3((unsigned)((g.M + BM - 1) / BM), (unsigned)((g.Cout + BN - 1) / BN));
 }
 
+template <typename BT>
+void launch_bf16(const void* x, const void* w, const void* b, void* y, const Geom& g, int vec,
+                 cudaStream_t s) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const __nv_bfloat16*>(w);
+  const auto* bp = static_cast<const BT*>(b);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  if (vec)
+    conv3x3_bias_relu_bf16_kernel<true, BT><<<grid_for(g), THREADS, 0, s>>>(xp, wp, bp, yp, g);
+  else
+    conv3x3_bias_relu_bf16_kernel<false, BT><<<grid_for(g), THREADS, 0, s>>>(xp, wp, bp, yp, g);
+}
+
+// The sm90 loop `strip` picks (or the flat loop's BM x BN block), with the
+// epilogue E.
+template <int E>
+int launch_sm90(const void* x, const void* w, const void* b, void* y, int batch, int H, int W,
+                int Cin, int Cout, int strip, int bm, int bn, int sms, cudaStream_t s) {
+  if (strip) return sm90::launch_strip<E>(sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, 64),
+                                          sms, s);
+  const sm90::Conv p = sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, bn);
+  if (bm == 128 && bn == 64) return sm90::launch<128, 64, E>(p, s);
+  if (bm == 256 && bn == 128) return sm90::launch<256, 128, E>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C interface, bound from Python with ctypes. Each launches on
 // `stream` (a cudaStream_t), does not synchronise, and returns
-// cudaGetLastError() so that a refused launch is reported at once.
+// cudaGetLastError() so that a refused launch is reported at once. The bf16
+// entries read b as bf16, or as f32 where `f32_bias` is 1.
 extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w, const void* b, void* y,
                                       int batch, int H, int W, int Cin, int Cout, int vec,
-                                      void* stream) {
+                                      int f32_bias, void* stream) {
   const Geom g = make_geom(batch, H, W, Cin, Cout);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
-  const auto* bp = static_cast<const __nv_bfloat16*>(b);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
-  if (vec)
-    conv3x3_bias_relu_bf16_kernel<true><<<grid_for(g), THREADS, 0, s>>>(xp, wp, bp, yp, g);
+  if (f32_bias)
+    launch_bf16<float>(x, w, b, y, g, vec, s);
   else
-    conv3x3_bias_relu_bf16_kernel<false><<<grid_for(g), THREADS, 0, s>>>(xp, wp, bp, yp, g);
+    launch_bf16<__nv_bfloat16>(x, w, b, y, g, vec, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,7 +391,8 @@ extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* b
 }
 
 // The sm90 route: x [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major),
-// b [Cout] bf16 -> y [B, H-2, W-2, Cout] bf16. Cin, Cout multiples of 8,
+// b [Cout] bf16 (f32 where `f32_bias` is 1) -> y [B, H-2, W-2, Cout] bf16.
+// Cin, Cout multiples of 8,
 // x, w, y 16-byte aligned. ops/conv_pallas.py::sm90_plan picks the loop
 // (`strip`) and, for the flat loop, the block BM x BN; the ring, grid and
 // shared memory follow from them here (the strip loop's grid from the
@@ -372,16 +400,14 @@ extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* b
 // return cudaErrorInvalidValue.
 extern "C" int conv3x3_bias_relu_sm90(const void* x, const void* w, const void* b, void* y,
                                       int batch, int H, int W, int Cin, int Cout, int strip,
-                                      int bm, int bn, int sms, void* stream) {
+                                      int bm, int bn, int sms, int f32_bias, void* stream) {
   if (batch < 1 || H < 3 || W < 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int E = sm90::BIAS_RELU_BF16;
-  if (strip) return sm90::launch_strip<E>(sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, 64),
-                                          sms, s);
-  const sm90::Conv p = sm90::make_conv(x, w, b, y, batch, H, W, Cin, Cout, bn);
-  if (bm == 128 && bn == 64) return sm90::launch<128, 64, E>(p, s);
-  if (bm == 256 && bn == 128) return sm90::launch<256, 128, E>(p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (f32_bias)
+    return launch_sm90<sm90::BIAS_F32_RELU_BF16>(x, w, b, y, batch, H, W, Cin, Cout, strip, bm,
+                                                 bn, sms, s);
+  return launch_sm90<sm90::BIAS_RELU_BF16>(x, w, b, y, batch, H, W, Cin, Cout, strip, bm, bn,
+                                           sms, s);
 }
 
 extern "C" const char* tpu_unet_torch_cuda_error_string(int code) {

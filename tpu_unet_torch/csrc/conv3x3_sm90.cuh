@@ -4,7 +4,8 @@
 // Cin, Cout <= 64; ops/conv_pallas.py::sm90_plan picks one, and the flat
 // loop's block.
 //
-// Included by conv3x3_bias_relu.cu (K1's bf16 route: bias + ReLU -> bf16),
+// Included by conv3x3_bias_relu.cu (K1's bf16 route: bias + ReLU -> bf16,
+// the bias bf16 or f32),
 // enc0_stages.cu (the Mosaic probes' conv2 stage: f32 out, or bf16(ReLU))
 // and enc0_chain.cu (K4's sm90 route runs the strip loop's MMA step,
 // `strip_mma`, on h1 rows its conv1 computes); conv_fused.cuh builds its
@@ -13,8 +14,8 @@
 // it launches.
 //
 //   x [B, H, W, Cin] bf16, w [Cout, 9, Cin] bf16 (K-major: each output
-//   channel's row, tap-major with ascending channels), bias [Cout] bf16
-//   -> y [B, H-2, W-2, Cout], bf16 or f32.
+//   channel's row, tap-major with ascending channels), bias [Cout] bf16 or
+//   f32 -> y [B, H-2, W-2, Cout], bf16 or f32.
 //
 // The flat loop's GEMM: M = B*Ho*Wo output pixels (flat, so a ragged Wo wastes
 // nothing), N = Cout, K = 9*Cin in steps of one tap (dy, dx) x 64
@@ -43,10 +44,12 @@
 // SM where two rings fit, so one block's prologue and epilogue overlap the
 // other's loop; 256-row blocks halve the B traffic per output.
 //
-// The epilogue is a template parameter: bias + ReLU -> bf16 (K1), none ->
-// f32, ReLU -> bf16 (the conv2 stage). ReLU is `v < 0 ? 0 : v`, which keeps
-// a NaN. The tile goes through shared memory (the retired ring) so that
-// every store to y is 16 bytes and a row's stores are contiguous.
+// The epilogue is a template parameter: bias + ReLU -> bf16 (K1; the bias
+// bf16, or f32 for the int8 tier's float layers, whose f32 bias a bf16 copy
+// would round before the one rounding of the output), none -> f32, ReLU ->
+// bf16 (the conv2 stage). ReLU is `v < 0 ? 0 : v`, which keeps a NaN. The
+// tile goes through shared memory (the retired ring) so that every store to
+// y is 16 bytes and a row's stores are contiguous.
 
 #pragma once
 
@@ -64,12 +67,15 @@ constexpr int STAGES = 4;      // the flat loop's ring
 // A block of BM output pixels runs BM / 64 warpgroups, 64 rows each.
 __host__ __device__ constexpr int threads(int bm) { return 2 * bm; }
 
-enum Epilogue { BIAS_RELU_BF16 = 0, F32 = 1, RELU_BF16 = 2 };
+enum Epilogue { BIAS_RELU_BF16 = 0, F32 = 1, RELU_BF16 = 2, BIAS_F32_RELU_BF16 = 3 };
+__host__ __device__ constexpr bool has_bias(int epi) {
+  return epi == BIAS_RELU_BF16 || epi == BIAS_F32_RELU_BF16;
+}
 
 struct Conv {
   const __nv_bfloat16* x;
   const __nv_bfloat16* w;
-  const __nv_bfloat16* bias;   // BIAS_RELU_BF16 only
+  const void* bias;            // bf16 for BIAS_RELU_BF16, f32 for BIAS_F32_RELU_BF16
   void* y;
   long long M;                 // B * Ho * Wo
   long long HoWo;
@@ -202,9 +208,16 @@ __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t a, uint6
   else wgmma_n128(d, a, b);
 }
 
+// Output channel n's bias in f32, read in the type the epilogue takes.
+template <int EPI>
+__device__ __forceinline__ float bias_at(const Conv& p, int n) {
+  if constexpr (EPI == BIAS_F32_RELU_BF16) return static_cast<const float*>(p.bias)[n];
+  else return __bfloat162float(static_cast<const __nv_bfloat16*>(p.bias)[n]);
+}
+
 template <int EPI>
 __device__ __forceinline__ float epilogue(float v, float bias) {
-  if constexpr (EPI == BIAS_RELU_BF16) v += bias;
+  if constexpr (has_bias(EPI)) v += bias;
   if constexpr (EPI != F32) v = v < 0.f ? 0.f : v;
   return v;
 }
@@ -336,10 +349,10 @@ __global__ void __launch_bounds__(threads(BM), min_blocks(BM, BN))
   for (int c = 0; c < BN / 8; ++c) {
     const int col = c * 8 + colq;
     float b0 = 0.f, b1 = 0.f;
-    if constexpr (EPI == BIAS_RELU_BF16) {
+    if constexpr (has_bias(EPI)) {
       if (n0 + col < p.Cout) {    // Cout is a multiple of 8: col + 1 is inside too
-        b0 = __bfloat162float(p.bias[n0 + col]);
-        b1 = __bfloat162float(p.bias[n0 + col + 1]);
+        b0 = bias_at<EPI>(p, n0 + col);
+        b1 = bias_at<EPI>(p, n0 + col + 1);
       }
     }
 #pragma unroll
@@ -497,10 +510,10 @@ __global__ void __launch_bounds__(STRIP_THREADS, 1)
   const int ch = warp * 16 + (lane >> 2);      // channels ch and ch + 8
   const int pxq = (lane & 3) * 2;              // pixels 8 c + pxq + e
   float bias[2] = {0.f, 0.f};
-  if constexpr (EPI == BIAS_RELU_BF16) {
+  if constexpr (has_bias(EPI)) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      if (ch + 8 * h < p.Cout) bias[h] = __bfloat162float(p.bias[ch + 8 * h]);
+      if (ch + 8 * h < p.Cout) bias[h] = bias_at<EPI>(p, ch + 8 * h);
   }
   float acc[STRIP_TW / 2];
   for (long long k = 0; blockIdx.x + k * gridDim.x < tiles; ++k) {
@@ -591,7 +604,7 @@ inline Conv make_conv(const void* x, const void* w, const void* bias, void* y, i
   Conv p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  p.bias = bias;
   p.y = y;
   p.H = H;
   p.W = W;

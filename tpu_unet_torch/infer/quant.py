@@ -43,12 +43,17 @@ converts them to its device and PyTorch's layouts once.
 The float convs run in f32 on bf16-valued tensors and add the f32 bias
 before one bf16 rounding, as the JAX package's ``preferred_element_type``
 convs do. On the card they may run in TF32: a bf16 value is exact in TF32,
-so the products are those of f32.
+so the products are those of f32. There, under a config whose 3x3 convs
+run on K1 (``conv_impl='pallas'``, as the bf16 model routes them), the
+float 3x3 convs outside the paired and packed forms run on K1
+(`ops.conv_pallas.conv3x3_bias_relu`): bf16 NHWC in, the f32 bias, ReLU and
+the one rounding in its epilogue. Only the order of the f32 sums differs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Dict, FrozenSet, Mapping, Optional, Tuple
@@ -62,6 +67,7 @@ from tpu_unet_torch.convert import kernel_to_convtranspose_weight, params_from_s
 from tpu_unet_torch.models.unet import _max_pool2, center_crop_or_pad
 from tpu_unet_torch.ops import phase as ph
 from tpu_unet_torch.ops.conv_kxk import conv_rows3_col
+from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu as conv3x3_k1
 from tpu_unet_torch.ops.conv_tiles import (_scalar, conv3x3_fused, conv3x3_int4_acc,
                                            conv3x3_int4_xla, conv3x3_int8_xla,
                                            conv_int8_acc, int4_epilogue,
@@ -255,6 +261,9 @@ class QuantInference:
         # the weights in PyTorch's layouts on the device, once
         self._wq = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.qconv.items()}
         self._wq4 = {n: w.to(dev).contiguous() for n, (w, _, _) in qp.q4conv.items()}
+        # K1 takes the float 3x3 convs on a card when the config routes its
+        # 3x3 convs there (`_fconv_hwio`)
+        self._k1 = self.device.type == "cuda" and qp.cfg.conv_impl == "pallas"
         self._fconv, self._up = {}, {}
         for name, (k, b) in qp.fconv.items():
             k = k.to(torch.bfloat16).float()
@@ -336,7 +345,18 @@ class QuantInference:
                 self._paired[name] = (self._blockdiag(k, *dims), torch.cat([b, b]))
         return self._paired[name]
 
+    @functools.cached_property
+    def _fconv_hwio(self) -> Dict[str, torch.Tensor]:
+        """K1's bf16 HWIO kernels of the float 3x3 convs, built once, on the
+        first forward that takes K1; an engine off K1 never builds them."""
+        return {name: k.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+                for name, (k, _) in self._fconv.items()}
+
     def _conv_f(self, name: str, v: torch.Tensor, paired: bool = False) -> torch.Tensor:
+        if self._k1 and not paired:
+            with span("quant.float"):
+                return conv3x3_k1(v.to(torch.bfloat16).contiguous(), self._fconv_hwio[name],
+                                  self._fconv[name][1])
         k, b = self._paired_weights(name) if paired else self._fconv[name]
         with span("quant.float"):
             with tf32_for_bf16_values():

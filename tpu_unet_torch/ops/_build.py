@@ -127,11 +127,11 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("conv3x3_bias_relu_bf16", "conv3x3_bias_relu_f32"):
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-            fn.restype = i
-        lib.conv3x3_bias_relu_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.conv3x3_bias_relu_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.conv3x3_bias_relu_f32.restype = i
+        lib.conv3x3_bias_relu_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.conv3x3_bias_relu_bf16.restype = i
+        lib.conv3x3_bias_relu_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         lib.conv3x3_bias_relu_sm90.restype = i
         for name in ("conv3x3_fused_s8", "conv3x3_fused_bf16", "conv_kxk_fused_s8"):
             fn = getattr(lib, name)

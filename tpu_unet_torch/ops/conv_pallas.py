@@ -3,7 +3,9 @@ plain PyTorch version.
 
 Counterpart of ``tpu_unet/ops/conv_pallas.py``. The layout is the JAX
 package's: x NHWC ``[B, H, W, Cin]``, w HWIO ``[3, 3, Cin, Cout]``, b
-``[Cout]`` -> ``[B, H-2, W-2, Cout]``. The kernels are CUDA C++ in
+``[Cout]`` -> ``[B, H-2, W-2, Cout]``; beside a bf16 x, b may be f32 (the
+int8 tier's float layers add an f32 bias before the one bf16 rounding). The
+kernels are CUDA C++ in
 ``tpu_unet_torch/csrc/conv3x3_bias_relu.cu``, built on first use
 (``ops/_build.py``), on one of two routes that `conv3x3_route` picks by
 shape: ``"sm90"`` (bf16, Cin and Cout multiples of 8, x 16-byte aligned:
@@ -115,9 +117,11 @@ def _check_kernel_args(x, w, b, out_dtype) -> None:
     for name, t in (("w", w), ("b", b)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: the kernel "
-                            f"takes one dtype")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w is {w.dtype}, x is {x.dtype}: the kernel takes one dtype")
+    if b.dtype != x.dtype and (x.dtype, b.dtype) != (torch.bfloat16, torch.float32):
+        raise TypeError(f"b is {b.dtype}, x is {x.dtype}: the kernel takes b in x's "
+                        f"dtype, or float32 beside bfloat16")
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
     if out_dtype is not None and out_dtype != x.dtype:
@@ -171,7 +175,8 @@ def conv3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     On a CPU tensor: `conv3x3_bias_relu_plain`. On a CUDA tensor: a Hopper
     kernel on the route `conv3x3_route` picks, which takes contiguous
-    float32 or bfloat16 tensors of one dtype and writes that dtype. Each
+    float32 or bfloat16 tensors of one dtype, or a float32 b beside
+    bfloat16 x and w, and writes x's dtype. Each
     launch counts in ``conv3x3_bias_relu.launches``, and the sm90 route's
     also in ``conv3x3_bias_relu.sm90_launches``. The backward runs library
     convs on either device."""
@@ -201,7 +206,7 @@ def _launch_sm90(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     _build.launch("conv3x3_bias_relu", _build.load_library().conv3x3_bias_relu_sm90, x.get_device(),
                   x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
                   int(plan.kind == "strip"), plan.bm, plan.bn, _sms(x.device),
-                  shapes=(("x", x), ("w", w)))
+                  int(b.dtype == torch.float32), shapes=(("x", x), ("w", w)))
     conv3x3_bias_relu.launches += 1
     conv3x3_bias_relu.sm90_launches += 1
     return y
@@ -213,13 +218,15 @@ def _launch_simple(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     cout = w.shape[3]
     y = torch.empty((bsz, h - 2, wd - 2, cout), dtype=x.dtype, device=x.device)
     lib = _build.load_library()
-    fn = (lib.conv3x3_bias_relu_bf16 if x.dtype == torch.bfloat16
-          else lib.conv3x3_bias_relu_f32)
     ve = 16 // x.element_size()        # elements per 16-byte load
     vec = int(cin % ve == 0 and cout % ve == 0
               and all(t.data_ptr() % 16 == 0 for t in (x, w)))
-    _build.launch("conv3x3_bias_relu", fn, x.get_device(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  y.data_ptr(), bsz, h, wd, cin, cout, vec, shapes=(("x", x), ("w", w)))
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout, vec)
+    if x.dtype == torch.bfloat16:
+        fn, args = lib.conv3x3_bias_relu_bf16, args + (int(b.dtype == torch.float32),)
+    else:
+        fn = lib.conv3x3_bias_relu_f32
+    _build.launch("conv3x3_bias_relu", fn, x.get_device(), *args, shapes=(("x", x), ("w", w)))
     conv3x3_bias_relu.launches += 1
     return y
 

@@ -110,8 +110,9 @@ def _bf16_ulps(got, ref) -> float:
 
 
 def _library_level0(x, w1, b1, w2, b2, scale):
-    """The production int8 forward's level 0 (`QuantInference._conv_f`
-    twice, the int8 capture of the skip and the pool)."""
+    """The production int8 forward's level 0 through the library
+    (`QuantInference._conv_f`'s expression off K1, twice, the int8 capture
+    of the skip and the pool)."""
     def conv(v, w, b):
         with tf32_for_bf16_values():
             y = F.conv2d(v.to(torch.bfloat16).float().permute(0, 3, 1, 2),
