@@ -201,6 +201,16 @@ Phases, each printing its own lines:
      route. A failed rank or a group not done within MESH_TIMEOUT_S fails
      the run, and every rank still running is stopped. Times of ranks that
      share one card are printed as such: not a scaling figure.
+ 24. TransUNet's decoder on K1: the published TransUNet R50-ViT-B/16
+     (conv_impl='pallas', random weights from seed 4, BatchNorm statistics
+     drawn so that the folded bias is off 0 and off the bf16 grid), one
+     eager forward of a 16-slice chunk at 512 x 512 with the model's
+     `conv3x3_bias_relu` wrapped to keep each of its nine calls' bordered
+     input, HWIO weight and f32 bias: each call's K1 output, on the sm90
+     loop (Cin 768 at 32^2, 1024 and 256 at 64^2, 512 and 128 at 128^2, 192
+     and 64 at 256^2, 64 and 16 at 512^2; Cout 512 ... 16), against its
+     plain version at BF16_TOL of the output's scale; then K1's and
+     attention's launches in one eager forward, counted from 0 (9 and 12).
 The line before the last is a JSON summary of the thirteen kernels
 (conv3x3_bias_relu, edt_column_pass, conv3x3_fused, enc0_chain,
 concat_quantize, pair_batch_channels, unpair_batch_channels,
@@ -208,7 +218,8 @@ interleave_pairs, conv_kxk_fused, row_gather, enc0_conv1_stage,
 enc0_conv2_stage, enc0_pool_quant_stage) and of the end-to-end paths
 timed in turns (float serving, research 'fused', the 'pallas' train step)
 with their device idle shares, phase 20's runs, and phases 21-23's
-results (phase 23's launches per rank under the kernels' mesh_* paths);
+results (phase 23's launches per rank under the kernels' mesh_* paths;
+phase 24's under conv3x3_bias_relu's serve_transunet path);
 the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 non-zero without that line. There is no CPU path.
@@ -3998,6 +4009,92 @@ def end_to_end(tiles_s, research_tiles_s, step_ms):
                               / step_ms["pallas"]["step"]}}
 
 
+TRANSUNET_DECODER_CALLS = 9
+
+
+def _draw_batchnorms(model, seed: int) -> None:
+    """The decoder's BatchNorm affines and running statistics drawn from
+    `seed` (scales 1 + 0.1 N, shifts and means 0.1 N, variances
+    exp(0.2 N)), so that each folded bias is off 0 and off the bf16 grid."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.startswith("decoder.") and name.split(".")[-2] == "1":
+                z = torch.randn(t.shape, generator=gen, device=DEVICE)
+                t.copy_(torch.exp(0.2 * z) if name.endswith("running_var")
+                        else (name.endswith("weight") + 0.1 * z))
+    model.prepare()
+
+
+@torch.inference_mode()
+def phase24_transunet_decoder():
+    """K1 at the TransUNet decoder's nine shapes, each on its input as an
+    eager forward of one 16-slice chunk computes it, against its plain
+    version; then the launches of one eager forward. Returns (max |err|,
+    {'conv3x3_bias_relu', 'attention'}: launches a forward)."""
+    import tpu_unet_torch.models.transunet as tu
+    from tpu_unet_torch.config import TransUNetConfig
+    from tpu_unet_torch.ops.attention import attention
+    from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    cfg = TransUNetConfig(conv_impl="pallas")
+    with torch.device(DEVICE):
+        model = tu.TransUNet(cfg, generator=torch.Generator(device=DEVICE).manual_seed(4))
+    model.cuda_graphs = False
+    _draw_batchnorms(model, 5)
+    s = cfg.img_size
+    x = torch.rand(BATCH_TILES, s, s, 1, device=DEVICE,
+                   generator=torch.Generator(device=DEVICE).manual_seed(6))
+    calls = []
+
+    def keeping(xb, w, b):
+        calls.append((xb, w, b))
+        return conv3x3_bias_relu(xb, w, b)
+    tu.conv3x3_bias_relu = keeping
+    try:
+        model(x)
+    finally:
+        tu.conv3x3_bias_relu = conv3x3_bias_relu
+    if len(calls) != TRANSUNET_DECODER_CALLS:
+        raise AssertionError(f"{len(calls)} K1 calls a forward, not {TRANSUNET_DECODER_CALLS}")
+    max_err = 0.0
+    for i, (xb, w, b) in enumerate(calls):
+        if b.dtype != torch.float32 or w.dtype != torch.bfloat16 or xb.dtype != torch.bfloat16:
+            raise AssertionError(f"call {i}: x {xb.dtype}, w {w.dtype}, b {b.dtype}")
+        if torch.equal(b.to(torch.bfloat16).float(), b):
+            raise AssertionError(f"call {i}: the folded bias is bf16-exact")
+        sm90 = conv3x3_bias_relu.sm90_launches
+        got = conv3x3_bias_relu(xb, w, b)
+        route = "sm90" if conv3x3_bias_relu.sm90_launches > sm90 else "simple"
+        cin, cout = w.shape[2:]
+        if route != _route_of(cin):
+            raise AssertionError(f"call {i}: Cin {cin} took the {route} route")
+        ref = conv3x3_bias_relu_plain(xb, w, b)
+        if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+            raise AssertionError(f"call {i}: {got.dtype} {tuple(got.shape)}, want "
+                                 f"{tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        bar = BF16_TOL * max(ref.float().abs().max().item(), 1.0)
+        if not err <= bar:
+            raise AssertionError(f"call {i} x{list(xb.shape)} -> {cout}: max |err| {err} > {bar}")
+        max_err = max(max_err, err)
+        log(f"phase 24: decoder conv {i} x{list(xb.shape)} -> {cout} ({route}), f32 bias: "
+            f"max|err| {err:.3g} (bound {bar:.3g})")
+        del got, ref
+    del calls
+    conv3x3_bias_relu.launches, attention.launches = 0, 0
+    model(x)
+    launches = {"conv3x3_bias_relu": conv3x3_bias_relu.launches,
+                "attention": attention.launches}
+    if launches != {"conv3x3_bias_relu": TRANSUNET_DECODER_CALLS,
+                    "attention": cfg.layers}:
+        raise AssertionError(f"an eager forward launched {launches}")
+    log(f"phase 24: ok, the nine decoder convs within {BF16_TOL} of their scale; an eager "
+        f"forward launches K1 {launches['conv3x3_bias_relu']} and attention "
+        f"{launches['attention']} times")
+    return max_err, launches
+
+
 def main() -> None:
     smi = phase1_device()
     from tpu_unet_torch.models import ModelConfig
@@ -4036,6 +4133,7 @@ def main() -> None:
     from tpu_unet_torch.infer.quant import load_quant_params
     qp4 = load_quant_params(os.path.join(HERE, "build", "chip_smoke_int4.npz"))
     mesh = phase23_mesh(smi, cfg, served_state, data, qp, qp4)
+    transunet_err, transunet_launches = phase24_transunet_decoder()
     cli_launches = {name: {k: v[0] for k, v in r["launches"].items()}
                     for name, r in cli_runs.items() if "launches" in r}
     band_key = f"num_valid [5, 0], band {EDT_BAND}"
@@ -4048,6 +4146,7 @@ def main() -> None:
         "replaces": "tpu_unet/ops/conv_pallas.py:57",
         "launches": launches["conv3x3_bias_relu"],
         "max_abs_err": max_err,
+        "max_abs_err_transunet_decoder": transunet_err,
         "ms": total["kernel"],
         "plain_ms": total["plain"],
         "bound_ms": total["bound"],
@@ -4059,6 +4158,7 @@ def main() -> None:
                              "cli_test_pallas": cli_launches["TESTING pallas bf16"][
                                  "conv3x3_bias_relu"],
                              "serve_int8_float": int8_k1["launches"],
+                             "serve_transunet": transunet_launches["conv3x3_bias_relu"],
                              "serve_int4_float": int4["launches"]["serve_int4_float"][0],
                              "serve_int4_calibration": int4["launches"][
                                  "serve_int4_calibration"][0],

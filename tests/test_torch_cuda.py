@@ -1215,3 +1215,89 @@ def test_conv3x3_bias_matches_autograd_on_the_card(cuda, dtype, wgrad, dgrad):
         assert got.grad.dtype == dtype
         err = ((got.grad.float() - want.grad.float()).norm() / want.grad.float().norm()).item()
         assert err <= tol, err
+
+
+def _transunet(conv_impl="pallas", dtype="bfloat16"):
+    """TransUNet at a 64 x 64 input with the published trunk and decoder
+    widths (so K1 takes its flat and strip loops, Cout 16 included) and a
+    narrow 2-block ViT, weights from a seed; on the card."""
+    from tpu_unet_torch.config import TransUNetConfig
+    from tpu_unet_torch.models.transunet import TransUNet
+
+    cfg = TransUNetConfig(img_size=64, hidden=128, heads=2, layers=2, mlp=256,
+                          resnet_units=(1, 1, 2), compute_dtype=dtype, conv_impl=conv_impl)
+    with torch.device("cuda"):
+        model = TransUNet(cfg, generator=torch.Generator(device="cuda").manual_seed(3))
+    return model.eval()
+
+
+def test_transunet_graph_replays_equal_the_eager_forward(cuda):
+    """The first call of a shape runs eagerly, the second captures, the
+    third replays: the same kernels, the same bits, and a fresh tensor each
+    call."""
+    model = _transunet()
+    x = torch.rand(3, 64, 64, 1, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    with torch.inference_mode():
+        eager = model._run(x, model.prepare())
+        outs = [model(x) for _ in range(3)]
+        other = model(x.flip(1))
+    assert len(model._prep.graphs) == 1
+    for out in outs:
+        assert torch.equal(out, eager)
+    assert outs[1].data_ptr() != outs[2].data_ptr()
+    assert not torch.equal(other, eager)
+    torch.testing.assert_close(other, model._run(x.flip(1), model.prepare()), rtol=0, atol=0)
+
+
+def test_transunet_on_the_card_against_its_reference(cuda):
+    """bf16 on K1, and the 'xla' decoder, against the f32 reference on the
+    card: within the CPU test's bar (RMS gap 0.03 of the logits' RMS)."""
+    from tpu_unet_torch.models import transunet_ref
+
+    x = torch.rand(2, 64, 64, 1, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    for impl in ("pallas", "xla"):
+        model = _transunet(impl)
+        launches = conv3x3_bias_relu.launches
+        with torch.inference_mode():
+            got = model(x)
+        want = transunet_ref.forward(model.state_dict(), x, model.cfg)
+        rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+        assert rel < 0.03, (impl, rel)
+        assert conv3x3_bias_relu.launches - launches == (9 if impl == "pallas" else 0)
+
+
+def _kernel_us(model, x, graphs: bool) -> float:
+    """The card's time in one forward of `x` (its kernels and copies, in
+    us) under a profile of the card alone, replayed or eager."""
+    model.cuda_graphs = graphs
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model(x)
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_transunet_replays_and_eager_forwards_agree_in_device_time(cuda):
+    """The serving window replays the forward's CUDA graph; a traced run's
+    per-layer readers time the eager forward (`cuda_graphs` cleared), whose
+    spans they attribute by. Both launch the same kernels, so the card's
+    time in them agrees: the published model on a 4-slice chunk at 512^2,
+    medians of 5 profiles each in turns, within 10%."""
+    from tpu_unet_torch.config import TransUNetConfig
+    from tpu_unet_torch.models.transunet import TransUNet
+
+    with torch.device("cuda"):
+        model = TransUNet(TransUNetConfig(conv_impl="pallas"),
+                          generator=torch.Generator(device="cuda").manual_seed(3))
+    x = torch.rand(4, 512, 512, 1, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(4))
+    times = {True: [], False: []}
+    with torch.inference_mode():
+        for _ in range(3):                 # eager, capture, replay: every choice made
+            model(x)
+        for _ in range(5):
+            for graphs in (True, False):
+                times[graphs].append(_kernel_us(model, x, graphs))
+    replay, eager = (sorted(times[g])[2] for g in (True, False))
+    print(f"device us a forward: replayed {replay:.1f}, eager {eager:.1f}")
+    assert eager > 0 and abs(replay / eager - 1) < 0.1, (replay, eager)

@@ -90,6 +90,34 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TransUNetConfig:
+    """TransUNet R50-ViT-B/16 (Chen et al. 2021, arXiv:2102.04306; the
+    official ``vit_seg_configs.py::get_r50_b16_config`` at a 512 x 512 input,
+    9 classes as on Synapse): a ResNet-50 v2 trunk of `resnet_units`
+    bottleneck units, `layers` pre-LN ViT blocks of width `hidden` over the
+    (img_size / 16)^2 tokens of its stride-16 map, and a cascaded upsampling
+    decoder of `decoder_channels` taking `n_skip` of the trunk's maps. Every
+    conv is same-padded, so the output is the input's size (models/transunet.py).
+
+    conv_impl: 'pallas' runs the decoder's 3x3 conv + BN + ReLU layers on K1
+    (`ops.conv_pallas.conv3x3_bias_relu`), 'xla' through ``F.conv2d``.
+    """
+
+    img_size: int = 512
+    in_channels: int = 1
+    num_classes: int = 9
+    hidden: int = 768
+    heads: int = 12
+    layers: int = 12
+    mlp: int = 3072
+    resnet_units: Tuple[int, ...] = (3, 4, 9)
+    decoder_channels: Tuple[int, ...] = (256, 128, 64, 16)
+    n_skip: int = 3
+    compute_dtype: str = "bfloat16"
+    conv_impl: str = "xla"
+
+
+@dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """On-device augmentation pipeline (reference host pipeline: ``data.py:93-137``)."""
 

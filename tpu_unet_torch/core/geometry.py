@@ -150,6 +150,16 @@ def _tile_starts(extent: int, tile: int, align: int = 2 ** DEPTH) -> List[int]:
     return starts
 
 
+def whole_frame_plan(image_h: int, image_w: int) -> TilePlan:
+    """The plan of a same-padded network that takes the whole frame at once:
+    one tile, the frame, with no margin (pad 0) and no overlap."""
+    square = image_h == image_w
+    side = image_h if square else (image_h, image_w)
+    return TilePlan(image_h=image_h, image_w=image_w, tile_in=side, tile_out=side, pad=0,
+                    canvas_h=image_h, canvas_w=image_w, padded_h=image_h, padded_w=image_w,
+                    origins=((0, 0),), out_origins=((0, 0),))
+
+
 def plan_tiles(image_h: int, image_w: int,
                tile_out: "int | Tuple[int, int]",
                depth: int = DEPTH) -> TilePlan:

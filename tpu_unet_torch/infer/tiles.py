@@ -3,7 +3,10 @@
 The paper's overlap-tile strategy: tile the output domain
 (``tpu_unet_torch.core.geometry.plan_tiles``), mirror-pad each tile's
 receptive-field context, run the valid-conv network per tile, stitch. With
-`tile_out` >= the image size it is one whole-image tile.
+`tile_out` >= the image size it is one whole-image tile. The model plans its
+own tiles (``model.tile_plan``): a same-padded network such as TransUNet
+takes each frame whole, as one tile with no margin
+(``core.geometry.whole_frame_plan``).
 
 The batch entry points gather tiles across all images into one flat batch,
 run it through the model in chunks of `batch_tiles`, take the argmax per
@@ -22,16 +25,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpu_unet_torch.core.geometry import TilePlan, input_size_compute, plan_tiles
+from tpu_unet_torch.core.geometry import TilePlan
 from tpu_unet_torch.losses.metrics import batch_evaluation_metrics
 from tpu_unet_torch.models.unet import center_crop_or_pad
 from tpu_unet_torch.ops.pad import reflect_pad
 from tpu_unet_torch.parallel.mesh import all_gather_cat, axis_size
 from tpu_unet_torch.utils.profiling import span
-
-#: Smallest tile_out: below one pooling period (16 px) the planned stride
-#: exceeds the tile and the plan leaves gaps between tiles.
-MIN_TILE_OUT = 16
 
 
 class TileInference:
@@ -41,10 +40,14 @@ class TileInference:
                  tile_out=None, batch_tiles: int = 16,
                  normalize: bool = True, mesh=None, mesh_axis: str = "data",
                  apply_fn=None):
-        """`model`: a `tpu_unet_torch.models.UNet` holding its weights on the
-        device to run on. tile_out=None plans one whole-image tile; an
-        (h, w) pair plans rectangular strip tiles. `batch_tiles` tiles go
-        through the model per forward, on every entry point.
+        """`model`: a network holding its weights on the device to run on,
+        whose ``tile_plan(image_h, image_w, tile_out)`` plans its tiles: a
+        `tpu_unet_torch.models.UNet` (valid convs) its overlap tiles, where
+        tile_out=None plans one whole-image tile and an (h, w) pair
+        rectangular strip tiles; a same-padded network such as
+        `models.transunet.TransUNet` the whole frame as one tile, with no
+        margin. `batch_tiles` tiles go through the model per forward, on
+        every entry point.
 
         `mesh`: a ``DeviceMesh`` (parallel/mesh.py::make_mesh) whose
         `mesh_axis` spreads each chunk of tiles over its ranks: each rank
@@ -58,17 +61,12 @@ class TileInference:
         if mesh is not None and mesh_axis not in (mesh.mesh_dim_names or ()):
             raise ValueError(f"mesh has no axis {mesh_axis!r} "
                              f"(axes {mesh.mesh_dim_names})")
-        if tile_out is None:
-            tile_out = input_size_compute(max(image_h, image_w))[2]
-        if min(tile_out if isinstance(tile_out, tuple) else (tile_out,)) < MIN_TILE_OUT:
-            raise ValueError(f"tile_out must be >= {MIN_TILE_OUT} (one pooling "
-                             f"period), got {tile_out!r}")
         if batch_tiles < 1:
             raise ValueError(f"batch_tiles must be >= 1, got {batch_tiles}")
         self.model = model
         self.apply_fn = apply_fn
         self.device = next(model.parameters()).device
-        self.plan: TilePlan = plan_tiles(image_h, image_w, tile_out)
+        self.plan: TilePlan = model.tile_plan(image_h, image_w, tile_out)
         self.batch_tiles = batch_tiles
         self.normalize = normalize
         self.mesh, self.mesh_axis = mesh, mesh_axis
@@ -185,8 +183,9 @@ class TileInference:
 
     @torch.inference_mode()
     def evaluate_batch(self, images, labels) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[N, H, W] images + [N, H, W] {0,1} labels -> ([N, 2] per-image
-        (iou, pixel_error), [N, H, W] int32 preds), both on the device."""
+        """[N, H, W] images + [N, H, W] class-id labels -> ([N, 2] per-image
+        (iou of the nonzero masks, pixel_error: the share of pixels whose
+        class differs), [N, H, W] int32 preds), both on the device."""
         with span("tiles.evaluate"):
             preds = self.predict_batch(images)
             labels = self._on_device(labels)

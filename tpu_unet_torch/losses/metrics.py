@@ -28,10 +28,12 @@ def evaluation_metrics(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 def batch_evaluation_metrics(preds: torch.Tensor, labels: torch.Tensor
                              ) -> torch.Tensor:
-    """[B, 2] per-sample (iou, pixel_error) over a batch."""
+    """[B, 2] per-sample (iou, pixel_error) over a batch of class-id maps:
+    the IoU of the nonzero masks, and the share of pixels whose class
+    differs (for two classes the mean absolute difference, bit for bit)."""
     p = (preds != 0).flatten(1)
     l = (labels != 0).flatten(1)
     inter = torch.logical_and(p, l).sum(1).float()
     union = torch.logical_or(p, l).sum(1).float()
-    pe = torch.abs(preds.float() - labels.float()).flatten(1).mean(1)
+    pe = (preds != labels).flatten(1).float().mean(1)
     return torch.stack([inter / union, pe], dim=1)

@@ -50,12 +50,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_unet_torch.config import ModelConfig
-from tpu_unet_torch.core.geometry import output_size_for_input
+from tpu_unet_torch.core.geometry import (TilePlan, input_size_compute, output_size_for_input,
+                                         plan_tiles)
 from tpu_unet_torch.ops import phase as ph
 from tpu_unet_torch.ops.conv_bwd import auto_wgrad_impl, conv3x3_bias
 from tpu_unet_torch.ops.conv_pallas import conv3x3_bias_relu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: Smallest tile_out: below one pooling period (16 px) the planned stride
+#: exceeds the tile and the plan leaves gaps between tiles.
+MIN_TILE_OUT = 16
 
 
 def center_crop_or_pad(a: torch.Tensor, target_hw: Sequence[int],
@@ -191,6 +196,18 @@ class UNet(nn.Module):
             else:
                 u = torch.rand(p["bias"].shape, generator=generator)
                 p["bias"].copy_(u * (2 * bound) - bound)
+
+    def tile_plan(self, image_h: int, image_w: int, tile_out=None) -> TilePlan:
+        """The overlap-tile plan of the engine (infer/tiles.py) over
+        image_h x image_w frames: `core.geometry.plan_tiles` at output tiles
+        of `tile_out` (None: one tile covering the larger side; an (h, w)
+        pair: strip tiles), at least `MIN_TILE_OUT`."""
+        if tile_out is None:
+            tile_out = input_size_compute(max(image_h, image_w))[2]
+        if min(tile_out if isinstance(tile_out, tuple) else (tile_out,)) < MIN_TILE_OUT:
+            raise ValueError(f"tile_out must be >= {MIN_TILE_OUT} (one pooling "
+                             f"period), got {tile_out!r}")
+        return plan_tiles(image_h, image_w, tile_out)
 
     def _wb(self, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
         p = getattr(self, name)

@@ -3,9 +3,9 @@
 * `trace_capture`: `torch.profiler` around the enclosed steps, yielded for
   its event sums and, given a directory, written as a Chrome trace, the
   program's own spans included.
-* `span`: a named range of the program (`tiles.*`, `quant.*`, `train.*`)
-  in the profiler's timeline, opened only while a profiler session that
-  records host activity runs.
+* `span`: a named range of the program (`tiles.*`, `quant.*`, `train.*`,
+  `transunet.*`) in the profiler's timeline, opened only while a profiler
+  session that records host activity runs.
 * `StepTimer`: per-step wall-clock statistics that wait for the tensors'
   CUDA device.
 * `measure_roundtrip`: the host <-> device latency of a scalar readback.
